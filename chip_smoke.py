@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``clearvae_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. build   — compile every ``clearvae_torch/csrc/*.cu`` with nvcc for sm_90a
+             (all sources at once) and print the build time and ptxas report.
+2. kernels — hold each CUDA kernel against its plain PyTorch twin on the
+             card, values and autograd gradients, at (B, z) = (128, 8),
+             (100, 7) and (2048, 8), ps on and off; time kernel and twin with
+             CUDA events at B = 128 and B = 2048.
+3. main    — the flagship configuration through the user entry points:
+             ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
+             β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2 epochs
+             on synthetic Styled-MNIST of the six styles → ``evaluate``.
+             The launch counters are zeroed just before and read just after;
+             one step is also checked fused against unfused on the card.
+             Then a train step is timed and profiled: wall and device-busy
+             ms per step, idle share, kernels per step.
+
+It prints the card's name and power limit, one JSON line of per-kernel
+numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
+without that line when there is no CUDA device or no ``clearvae_torch``
+beside it. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and fp32 on
+# the CUDA cores (the kernels use no tensor cores).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+SHAPES = [(128, 8), (100, 7), (2048, 8)]
+TIMED = [(128, 8), (2048, 8)]       # B=128, z=8 is the main path's shape
+VAL_TOL = dict(rtol=2e-5, atol=1e-6)
+SOURCE = "clearvae_torch/csrc/fused_loss.cu"
+REPLACES = {
+    "clear_latent_fwdgrad": "clearvae_tpu/ops/pallas/fused_loss.py:249",
+    "snn_fwd": "clearvae_tpu/ops/pallas/fused_loss.py:76",
+    "snn_bwd": "clearvae_tpu/ops/pallas/fused_loss.py:99",
+}
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check_close(name, got, ref, *, rtol, atol):
+    """Max abs error of got vs ref; fails the run outside the tolerance."""
+    got, ref = got.detach().double(), ref.detach().double()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite output")
+    err = (got - ref).abs()
+    if bool((err > atol + rtol * ref.abs()).any()):
+        fail(f"{name}: max abs err {float(err.max()):.3e} beyond "
+             f"rtol={rtol} atol={atol}")
+    return float(err.max())
+
+
+def grad_tol(ref):
+    return dict(rtol=1e-3, atol=3e-5 * max(float(ref.abs().max()), 1.0))
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean time of one call, from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(name: str, b: int, z: int):
+    """(bound_ms, bound_by): bytes (each input read once, each output written
+    once) over HBM bandwidth vs fp32 operations over the CUDA-core peak.
+    Operations per half: 2z per pair for S = mu_n mu_nᵀ, 2 exps per pair, and
+    for a gradient 2z per pair for (G + Gᵀ) mu_n plus 2 more exps."""
+    pairs = b * (b - 1)
+    fwd = pairs * (2 * z + 2)
+    grad = pairs * (2 * z + 2)
+    lbl = 8 * b                                   # int64 labels
+    if name == "clear_latent_fwdgrad":
+        nbytes = 4 * (4 * b * z) + lbl + 4 * 4 + 4 * (2 * b * z)
+        flops = 2 * (fwd + grad) + 2 * 6 * b * z  # + the two KL sums
+    elif name == "snn_fwd":
+        nbytes = 4 * b * z + lbl + 4
+        flops = fwd
+    else:
+        nbytes = 4 * b * z + lbl + 4 + 4 * b * z
+        flops = fwd + grad
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from clearvae_torch.ops.kernels import _build
+
+    srcs = _build.sources()
+    t0 = time.perf_counter()
+    _build.build(srcs)
+    dt = time.perf_counter() - t0
+    print(f"[build] {srcs} built in {dt:.2f} s")
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    for name in srcs:
+        _build.load(name)
+    print(f"[build] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def _inputs(b, z, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mats = [torch.randn(b, z, generator=g) * (1.0 if i % 2 == 0 else 0.3)
+            for i in range(4)]
+    label = torch.randint(0, 10, (b,), generator=g)
+    return [m.to(dev) for m in mats], label.to(dev)
+
+
+def phase_kernels():
+    """Each kernel against its plain twin on the card; returns per-kernel
+    max errors and timings."""
+    from clearvae_torch.ops.kernels import fused_loss as FL
+
+    dev = torch.device("cuda")
+    errs = {k: 0.0 for k in REPLACES}
+    w = torch.tensor([0.7, 1.3, 0.11, 0.05], device=dev)
+    for si, (b, z) in enumerate(SHAPES):
+        for ps in (True, False):
+            (mu_c, lv_c, mu_s, lv_s), lbl = _inputs(b, z, 100 + si, dev)
+            tag = f"B={b} z={z} ps={ps}"
+            # K1: values and the unit-cotangent SNN gradients
+            out, dc, ds = FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, lbl,
+                                                  0.1, ps)
+            rout, rdc, rds = FL.clear_latent_plain(mu_c, lv_c, mu_s, lv_s, lbl,
+                                                   0.1, ps)
+            e = [check_close(f"K1 terms {tag}", out, rout, **VAL_TOL)]
+            e += [check_close(f"K1 dsnn {tag}", a, r, **grad_tol(r))
+                  for a, r in ((dc, rdc), (ds, rds))]
+            # K1 through autograd vs autograd of the plain terms
+            args = [t.clone().requires_grad_() for t in (mu_c, lv_c, mu_s, lv_s)]
+            terms = torch.stack(FL.fused_clear_latent_loss(
+                *args, lbl, temperature=0.1, ps=ps))
+            gf = torch.autograd.grad((w * terms).sum(), args)
+            rargs = [t.clone().requires_grad_() for t in (mu_c, lv_c, mu_s, lv_s)]
+            rterms = FL.clear_latent_plain(*rargs, lbl, 0.1, ps)[0]
+            gr = torch.autograd.grad((w * rterms).sum(), rargs)
+            e += [check_close(f"K1 grad {tag}", a, r, **grad_tol(r))
+                  for a, r in zip(gf, gr)]
+            errs["clear_latent_fwdgrad"] = max(errs["clear_latent_fwdgrad"], *e)
+            # K2f and K2b, direct and through the autograd.Function
+            loss = FL.snn_fwd(mu_s, lbl, 0.1, ps)
+            errs["snn_fwd"] = max(errs["snn_fwd"], check_close(
+                f"K2f {tag}", loss, FL.snn_fwd_plain(mu_s, lbl, 0.1, ps),
+                **VAL_TOL))
+            g = torch.tensor(1.7, device=dev)
+            rg = FL.snn_bwd_plain(mu_s, lbl, g, 0.1, ps)
+            eb = [check_close(f"K2b {tag}", FL.snn_bwd(mu_s, lbl, g, 0.1, ps),
+                              rg, **grad_tol(rg))]
+            m1 = mu_s.clone().requires_grad_()
+            gk = torch.autograd.grad(1.7 * FL.fused_contrastive_loss(
+                m1, lv_s, lbl, temperature=0.1, ps=ps), m1)[0]
+            m2 = mu_s.clone().requires_grad_()
+            gp = torch.autograd.grad(1.7 * FL.snn_fwd_plain(m2, lbl, 0.1, ps),
+                                     m2)[0]
+            eb.append(check_close(f"K2b autograd {tag}", gk, gp, **grad_tol(gp)))
+            errs["snn_bwd"] = max(errs["snn_bwd"], *eb)
+            print(f"[kernels] {tag}: K1 {max(e):.2e}  K2f "
+                  f"{errs['snn_fwd']:.2e}  K2b {max(eb):.2e} (max abs err)")
+    times = {}
+    for b, z in TIMED:
+        (mu_c, lv_c, mu_s, lv_s), lbl = _inputs(b, z, 7, dev)
+        one = torch.ones((), device=dev)
+        pairs = {
+            "clear_latent_fwdgrad": (
+                lambda: FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, lbl, 0.1, True),
+                lambda: FL.clear_latent_plain(mu_c, lv_c, mu_s, lv_s, lbl, 0.1, True)),
+            "snn_fwd": (lambda: FL.snn_fwd(mu_s, lbl, 0.1, True),
+                        lambda: FL.snn_fwd_plain(mu_s, lbl, 0.1, True)),
+            "snn_bwd": (lambda: FL.snn_bwd(mu_s, lbl, one, 0.1, True),
+                        lambda: FL.snn_bwd_plain(mu_s, lbl, one, 0.1, True)),
+        }
+        for name, (kern, plain) in pairs.items():
+            # turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                              cuda_ms(plain))
+            bms, by = bound(name, b, z)
+            times[(name, b)] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                    bound_ms=bms, bound_by=by)
+            print(f"[kernels] {name} B={b} z={z}: kernel {k1:.4f}/{k2:.4f} ms, "
+                  f"plain {p1:.4f}/{p2:.4f} ms, bound {bms:.6f} ms ({by})")
+    return errs, times
+
+
+def _small_step_check(dev):
+    """One CLEAR step, fused vs unfused, from the same weights and noise."""
+    import copy
+
+    from clearvae_torch.config import AnnealConfig, ContrastiveConfig
+    from clearvae_torch.models.vae import VAE
+    from clearvae_torch.train.steps import make_clear_vae_step
+
+    torch.manual_seed(0)
+    base = VAE(total_z_dim=16).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.rand(32, 28, 28, 1, generator=g).to(dev)
+    lbl = torch.randint(0, 10, (32,), generator=g).to(dev)
+    eps = torch.randn(2, 32, 8, generator=g).to(dev)
+    out = {}
+    for fused in (True, False):
+        model = copy.deepcopy(base)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        step = make_clear_vae_step(model, opt, AnnealConfig(beta=1 / 8),
+                                   ContrastiveConfig(alpha=100.0, fused=fused))
+        out[fused] = {k: float(v) for k, v in step(x, lbl, eps.unbind(0)).items()}
+    for k, v in out[False].items():
+        if not math.isclose(out[True][k], v, rel_tol=1e-4, abs_tol=1e-5):
+            fail(f"fused vs unfused step on the card: {k} {out[True][k]} vs {v}")
+    print(f"[main] one step fused == unfused within rtol 1e-4: {out[True]}")
+
+
+def phase_main(gpu):
+    from clearvae_torch.data.mnist import synthetic_mnist
+    from clearvae_torch.data.styled import make_styled_mnist, train_valid_split
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.train.factories import get_clearvae_trainer
+
+    dev = torch.device("cuda")
+    _small_step_check(dev)
+    t0 = time.perf_counter()
+    imgs, labels = synthetic_mnist(9600, seed=0)
+    train_ds, valid_ds = train_valid_split(make_styled_mnist(imgs, labels, seed=0))
+    train_ds.materialize(dev)
+    valid_ds.materialize(dev)
+    torch.cuda.synchronize()
+    print(f"[main] data: {len(train_ds)} train / {len(valid_ds)} held-out "
+          f"images, six styles, made and styled in "
+          f"{time.perf_counter() - t0:.2f} s")
+    trainer = get_clearvae_trainer(beta=1 / 8, ps=True, vae_lr=5e-4, z_dim=16,
+                                   alpha=100, temperature=0.1, seed=0,
+                                   verbose_period=1,
+                                   hyperparameter={"fused": True},
+                                   device="cuda")
+    bs = 128
+    steps_per_epoch = len(train_ds) // bs
+    FL.reset_launches()
+    rates = []
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        trainer.fit(1, train_ds, batch_size=bs, start_epoch=epoch)
+        torch.cuda.synchronize()
+        rates.append(steps_per_epoch * bs / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    mig, mse = trainer.evaluate(valid_ds, batch_size=bs)
+    eval_s = time.perf_counter() - t0
+    launches = dict(FL.LAUNCHES)
+    hist = {k: np.concatenate([h[k] for h in trainer.history])
+            for k in trainer.history[0]}
+    n_steps = len(hist["loss"])
+    for k, v in hist.items():
+        if not np.isfinite(v).all():
+            fail(f"non-finite training metric {k}")
+    if not (math.isfinite(mig) and math.isfinite(mse)):
+        fail(f"non-finite evaluation: mig={mig} mse={mse}")
+    n_eval_batches = -(-len(valid_ds) // bs)
+    if launches["clear_latent_fwdgrad"] != n_steps:
+        fail(f"K1 launched {launches['clear_latent_fwdgrad']} times in "
+             f"{n_steps} train steps")
+    if launches["snn_fwd"] != 2 * n_eval_batches:
+        fail(f"K2f launched {launches['snn_fwd']} times for "
+             f"{n_eval_batches} eval batches")
+    print(f"[main] {n_steps} train steps; loss {hist['loss'][0]:.3f} -> "
+          f"{hist['loss'][-1]:.3f}; eval MIG {mig:.4f}, MSE {mse:.3f} "
+          f"({eval_s:.2f} s)")
+    print(f"[main] images/sec: epoch 1 {rates[0]:.1f} (with warm-up), "
+          f"epoch 2 {rates[1]:.1f}; {gpu}")
+    print(f"[main] launches: {launches}")
+    _profile_steps(trainer, train_ds, bs)
+    return launches
+
+
+def _profile_steps(trainer, train_ds, bs, n: int = 20):
+    """Where a train step's time goes, after the main path (its launch
+    counts are already read): wall ms per step over n steps without the
+    profiler, device-busy ms per step from torch.profiler over n more, the
+    idle share of the unprofiled wall, kernels per step and the fused-loss
+    kernels' share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data, labels = trainer._device_data(train_ds)
+    idx = torch.arange(bs, device=data.device)
+    x, lbl = data[idx], labels[idx]
+
+    def steps():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(x, lbl, trainer._draw_eps(bs))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps()  # warm-up
+    wall_ms = steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = steps()
+    # a record_function range (Optimizer.step#Adam.step) is mirrored onto the
+    # device timeline under its host name; it spans kernels, it is not one
+    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in host_names]
+    if not kernels:
+        fail("the profiler recorded no device activity")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3 / n
+    fused = sum(v for k, v in by_name.items() if "fused_loss_" in k)
+    print(f"[profile] train step (B={bs}): wall {wall_ms:.3f} ms "
+          f"({prof_wall_ms:.3f} ms under the profiler), device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{len(kernels) / n:.0f} kernels/step, fused-loss kernels "
+          f"{fused / 1e3 / n:.4f} ms/step")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        import clearvae_torch
+    except ImportError as exc:
+        fail(f"the clearvae_torch package is not beside this script: {exc}")
+    if os.path.dirname(os.path.abspath(clearvae_torch.__file__)) != os.path.join(
+            here, "clearvae_torch"):
+        fail(f"clearvae_torch was imported from {clearvae_torch.__file__}, "
+             f"not from beside this script")
+    torch.backends.cudnn.allow_tf32 = False       # fp32 convolutions, as the
+    torch.backends.cuda.matmul.allow_tf32 = False  # JAX reference computes
+    gpu = gpu_name_and_limit()
+    phase_build()
+    errs, times = phase_kernels()
+    launches = phase_main(gpu)
+    kernels = [dict(name=name, route="cuda", source=SOURCE,
+                    replaces=REPLACES[name], launches=launches[name],
+                    max_abs_err=errs[name], **times[(name, 128)],
+                    library_ms=None)
+               for name in REPLACES]
+    print(gpu)
+    print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8},
+                      "b2048": {n: times[(n, 2048)] for n in REPLACES}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

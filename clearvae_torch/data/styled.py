@@ -1,0 +1,129 @@
+"""Styled-MNIST datasets and the k-style OOD protocol (counterpart of
+``clearvae_tpu/data/styled.py``; reference code/src/utils/data_utils.py:29-77,
+code/expr/expr_utils.py:7-57).
+
+The style of each sample is fixed at construction (numpy draws, bit-equal to
+the JAX package's); the styling runs on the device in ``materialize``, keyed
+by (dataset seed, absolute sample id), so it is reproducible without storage
+and independent of chunking. Styled images are [N, H, W] float32 in [0, 1]
+(the reference's ToTensor + /255, run_styledmnist_downstream_expr.py:80).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES, style_batch
+
+
+def random_style_distribution(styles: Sequence[str], seed: int | None = None) -> dict:
+    """Dirichlet(10,...) style probabilities (reference data_utils.py:14-26)."""
+    rng = np.random.RandomState(seed)
+    probs = rng.dirichlet([10] * len(styles))
+    return {s: p for s, p in zip(styles, probs)}
+
+
+def generate_style_dict(classes: Sequence[int], styles: Sequence[int], k: int,
+                        rng: np.random.RandomState) -> dict:
+    """k random train styles per class, complement as test styles
+    (reference expr_utils.py:7-15)."""
+    if k < 1 or k >= len(styles):
+        raise ValueError("k must be in [1, len(styles) - 1]")
+    style_dict = {}
+    for c in classes:
+        train_styles = rng.choice(styles, k, replace=False)
+        test_styles = np.setdiff1d(styles, train_styles)
+        style_dict[c] = {"train": train_styles, "test": test_styles}
+    return style_dict
+
+
+@dataclasses.dataclass
+class StyledDataset:
+    """Raw images ([N, H, W] float32 0..255) + labels + fixed per-sample
+    style indices; ``materialize`` styles them on a device."""
+
+    images: np.ndarray
+    labels: np.ndarray
+    style_idx: np.ndarray
+    styles: tuple = EXPERIMENT_STYLES
+    seed: int = 0
+    sample_ids: np.ndarray | None = None  # absolute ids keying style draws
+    _styled: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if self.sample_ids is None:
+            self.sample_ids = np.arange(len(self.labels), dtype=np.int32)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def materialize(self, device, device_batch: int = 512) -> torch.Tensor:
+        """The styled dataset, [N, H, W] float32 in [0, 1] on ``device``,
+        styled there in chunks once and cached per device."""
+        device = torch.device(device)
+        key = str(device)
+        if key not in self._styled:
+            chunks = []
+            for s in range(0, len(self), device_batch):
+                e = min(s + device_batch, len(self))
+                chunks.append(style_batch(
+                    torch.as_tensor(self.images[s:e], dtype=torch.float32,
+                                    device=device),
+                    torch.as_tensor(self.style_idx[s:e], device=device),
+                    torch.as_tensor(self.sample_ids[s:e], device=device),
+                    self.seed, self.styles))
+            self._styled[key] = torch.cat(chunks)
+        return self._styled[key]
+
+
+def make_styled_mnist(images: np.ndarray, labels: np.ndarray,
+                      style_probs: dict[str, float] | None = None,
+                      styles: tuple = EXPERIMENT_STYLES,
+                      seed: int = 0) -> StyledDataset:
+    """Random style per image by categorical draw (reference
+    StyledMNISTGenerator, data_utils.py:29-53)."""
+    rng = np.random.RandomState(seed)
+    names = [n for n, _ in styles]
+    if style_probs is None:
+        p = np.full(len(names), 1.0 / len(names))
+    else:
+        p = np.asarray([style_probs[n] for n in names])
+        p = p / p.sum()
+    style_idx = rng.choice(len(names), size=len(labels), p=p).astype(np.int32)
+    return StyledDataset(np.asarray(images, np.float32), labels, style_idx,
+                         styles, seed)
+
+
+def make_k_styled_mnist(images: np.ndarray, labels: np.ndarray,
+                        style_dict: dict, split: str,
+                        styles: tuple = EXPERIMENT_STYLES,
+                        seed: int = 0) -> StyledDataset:
+    """Per-class k-style split assignment (reference KStyledMNISTGenerator,
+    expr_utils.py:18-36)."""
+    rng = np.random.RandomState(seed)
+    style_idx = np.empty(len(labels), np.int32)
+    for i, y in enumerate(labels):
+        style_idx[i] = rng.choice(style_dict[int(y)][split])
+    return StyledDataset(np.asarray(images, np.float32), labels, style_idx,
+                         styles, seed)
+
+
+def train_valid_split(ds: StyledDataset, train_frac: float = 0.85,
+                      seed: int = 0) -> tuple[StyledDataset, StyledDataset]:
+    """85/15 random split (reference run_styledmnist_downstream_expr.py:87-88);
+    the halves keep their absolute sample ids, so their styling is
+    unchanged."""
+    n = len(ds)
+    idx = np.arange(n)
+    np.random.RandomState(seed).shuffle(idx)
+    cut = int(train_frac * n)
+
+    def sub(sel):
+        return StyledDataset(ds.images[sel], ds.labels[sel], ds.style_idx[sel],
+                             ds.styles, ds.seed, ds.sample_ids[sel])
+
+    return sub(idx[:cut]), sub(idx[cut:])

@@ -1,0 +1,147 @@
+"""Image primitives for the Styled-MNIST styles (counterpart of the parts of
+``clearvae_tpu/ops/image.py`` that the six experiment styles use).
+
+Batched: images are [B, H, W] tensors and per-sample scalars are [B]
+tensors, so one call styles a whole batch on the device. Gaussian filtering
+and 'same' convolutions follow scipy/skimage border modes; bilinear sampling
+and the inverse affine warp follow skimage ``transform.warp`` (order 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+# scipy/skimage border-mode names mapped to index rules:
+#   'nearest'     -> edge replicate            (skimage gaussian default)
+#   'reflect'     -> symmetric (edge included) (scipy 'reflect')
+#   'reflect_101' -> mirror (edge excluded)    (cv2 BORDER_REFLECT_101)
+
+
+def _border_idx(n: int, pad: int, mode: str) -> np.ndarray:
+    i = np.arange(-pad, n + pad)
+    if mode in ("nearest", "edge"):
+        return np.clip(i, 0, n - 1)
+    if mode == "reflect":  # symmetric, supports pad >= n
+        period = 2 * n
+        j = np.mod(i, period)
+        return np.where(j >= n, period - 1 - j, j)
+    if mode == "reflect_101":  # mirror
+        if n == 1:
+            return np.zeros_like(i)
+        period = 2 * (n - 1)
+        j = np.mod(i, period)
+        return np.where(j >= n, period - j, j)
+    raise ValueError(mode)
+
+
+def _pad2d(x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
+    """Pad the last two dims of [..., H, W]."""
+    if mode == "constant":
+        return F.pad(x, (pw, pw, ph, ph))
+    h, w = x.shape[-2:]
+    ri = torch.as_tensor(_border_idx(h, ph, mode), device=x.device)
+    ci = torch.as_tensor(_border_idx(w, pw, mode), device=x.device)
+    return x[..., ri, :][..., ci]
+
+
+def _correlate(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """'valid' 2-D cross-correlation of [B, H, W] with one [kh, kw] kernel."""
+    return F.conv2d(x[:, None], kernel[None, None])[:, 0]
+
+
+def conv2d_same(x: torch.Tensor, kernel, mode: str = "reflect_101") -> torch.Tensor:
+    """2-D correlation with 'same' output of a [B, H, W] batch."""
+    kernel = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    kh, kw = kernel.shape
+    return _correlate(_pad2d(x, kh // 2, kw // 2, mode), kernel)
+
+
+def gaussian_kernel_1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """scipy.ndimage-compatible 1-D Gaussian (radius = int(truncate*sigma+0.5))."""
+    radius = int(truncate * sigma + 0.5)
+    xs = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "nearest",
+                    truncate: float = 4.0) -> torch.Tensor:
+    """Separable Gaussian blur of [B, H, W]: rows first, then columns
+    (skimage.filters.gaussian defaults: mode='nearest', truncate=4)."""
+    if sigma <= 0:
+        return x
+    k = torch.as_tensor(gaussian_kernel_1d(sigma, truncate), device=x.device)
+    r = k.shape[0] // 2
+    xp = _pad2d(x, r, r, mode)
+    return _correlate(_correlate(xp, k[:, None]), k[None, :])
+
+
+def bilinear_sample(img: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
+                    cval: float = 0.0, mode: str = "constant") -> torch.Tensor:
+    """Sample each image of [B, H, W] at its float coordinates (rr, cc)
+    ([B, h, w]) with bilinear weights. mode='constant': out-of-bounds
+    corners contribute ``cval`` (skimage warp order=1); mode='edge': clamp."""
+    b, h, w = img.shape
+    r0, c0 = torch.floor(rr), torch.floor(cc)
+    dr, dc = rr - r0, cc - c0
+    flat = img.reshape(b, -1)
+    out = torch.zeros_like(rr)
+    for ri, ci, wgt in ((r0, c0, (1 - dr) * (1 - dc)),
+                        (r0, c0 + 1, (1 - dr) * dc),
+                        (r0 + 1, c0, dr * (1 - dc)),
+                        (r0 + 1, c0 + 1, dr * dc)):
+        ric = ri.clamp(0, h - 1).long()
+        cic = ci.clamp(0, w - 1).long()
+        vals = flat.gather(1, (ric * w + cic).reshape(b, -1)).view_as(rr)
+        if mode == "constant":
+            inb = (ri >= 0) & (ri <= h - 1) & (ci >= 0) & (ci <= w - 1)
+            vals = torch.where(inb, vals, torch.full_like(vals, cval))
+        out = out + wgt * vals
+    return out
+
+
+def affine_warp(img: torch.Tensor, matrix: torch.Tensor,
+                cval: float = 0.0) -> torch.Tensor:
+    """skimage ``warp(img, inverse_map=AffineTransform(matrix))`` of a
+    [B, H, W] batch; ``matrix`` is one 3×3 (col, row) homogeneous map: the
+    output pixel (r, c) samples the input at (col', row') = M @ (c, r, 1)."""
+    b, h, w = img.shape
+    m = matrix.to(device=img.device, dtype=torch.float32)
+    rows = torch.arange(h, dtype=torch.float32, device=img.device)[:, None].expand(h, w)
+    cols = torch.arange(w, dtype=torch.float32, device=img.device)[None, :].expand(h, w)
+    src_c = m[0, 0] * cols + m[0, 1] * rows + m[0, 2]
+    src_r = m[1, 0] * cols + m[1, 1] * rows + m[1, 2]
+    return bilinear_sample(img, src_r.expand(b, h, w), src_c.expand(b, h, w),
+                           cval=cval, mode="constant")
+
+
+def center_affine(a1: float, a2: float, b1: float, b2: float,
+                  center: float = 13.5) -> torch.Tensor:
+    """The center-preserving 3×3 (col, row) matrix of the reference
+    (corruptions.py:569-574)."""
+    a3 = center * (1.0 - a1 - a2)
+    b3 = center * (1.0 - b1 - b2)
+    return torch.tensor([[a1, a2, a3], [b1, b2, b3], [0.0, 0.0, 1.0]],
+                        dtype=torch.float32)
+
+
+def line_from_points(c0, r0, c1, r1, size: int = 28) -> torch.Tensor:
+    """Soft anti-aliased line from (c0, r0) to (c1, r1), one per sample:
+    the coordinates are [B] float tensors; returns [B, size, size]. A line
+    with c1 == c0 is all zeros, as in the reference."""
+    c0, r0, c1, r1 = (t.to(torch.float32)[:, None, None] for t in (c0, r0, c1, r1))
+    dev = c0.device
+    cc = torch.arange(size, dtype=torch.float32, device=dev)[None, None, :]
+    rr = torch.arange(size, dtype=torch.float32, device=dev)[None, :, None]
+    vertical = c1 == c0
+    denom = torch.where(vertical, torch.ones_like(c1), c1 - c0)
+    m = (r1 - r0) / denom
+    dist = torch.clamp(torch.abs(rr - (m * (cc - c0) + r0)), 0.0,
+                       float(np.float32(2.3 - 1e-10)))
+    corr = torch.clamp(torch.log(torch.clamp_min(1.0 - dist / 2.3, 1e-30)) + 1.0,
+                       0.0, 1.0)
+    colmask = (cc >= torch.floor(c0)) & (cc < torch.ceil(c1))
+    corr = torch.where(colmask, corr, torch.zeros_like(corr))
+    return torch.where(vertical, torch.zeros_like(corr), corr.clamp(0.0, 1.0))

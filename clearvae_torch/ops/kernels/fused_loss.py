@@ -1,0 +1,296 @@
+"""Fused CLEAR latent-loss kernels: CUDA for Hopper, with their plain twins.
+
+Counterpart of ``clearvae_tpu/ops/pallas/fused_loss.py``. Three kernels in
+``clearvae_torch/csrc/fused_loss.cu`` replace the three Pallas kernels of the
+CLEAR path:
+
+- ``clear_latent_fwdgrad`` (K1, for ``_clear_fwdgrad_kernel``): KL_c, KL_s,
+  SNN(mu_c), SNN or PS-SNN(mu_s) and the unit-cotangent SNN gradients of
+  both halves in one call; the backward is an elementwise combine with the
+  closed-form KL gradients.
+- ``snn_fwd`` (K2f, for ``_fwd_kernel``): the loss of one half, no gradient.
+- ``snn_bwd`` (K2b, for ``_bwd_kernel``): g * dSNN/dmu of one half.
+
+Each has a plain PyTorch twin here (``*_plain``) that repeats its arithmetic,
+masking constants included. A wrapper launches its kernel for a CUDA tensor
+(or raises) and takes the plain twin only for a CPU tensor. ``LAUNCHES``
+counts kernel launches, one per wrapper call that reaches the card.
+
+Semantics equal ``vae_loss``'s KL halves and ``contrastive_loss(sim_fn=
+'cosine', loss_name='snn')``; ``fused_contrastive_loss`` routes other
+similarity/loss choices to the plain ``ops.losses`` path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from clearvae_torch.ops import losses as L
+
+Tensor = torch.Tensor
+
+_EPS = 1e-8        # torch cosine_similarity norm clamp
+_NEG = -1e30       # masked-entry fill
+_MAX_FLOOR = -1e29
+_SUM_FLOOR = 1e-37
+Z_MAX = 64         # the kernels keep a row of mu in registers
+
+LAUNCHES = {"clear_latent_fwdgrad": 0, "snn_fwd": 0, "snn_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain twins (the CPU path, and what the kernels are held to on the card)
+# ---------------------------------------------------------------------------
+
+
+def _row_stats_plain(mu: Tensor, label: Tensor, temperature: float, ps: bool):
+    """Row-normalized mu, S = cos/tau, masks, and both masked logsumexps."""
+    n = mu.shape[0]
+    r = torch.sqrt((mu * mu).sum(1, keepdim=True))
+    r_c = r.clamp_min(_EPS)
+    mu_n = mu / r_c
+    s = (mu_n @ mu_n.T) / temperature
+    same = label[:, None] == label[None, :]
+    valid = ~torch.eye(n, dtype=torch.bool, device=mu.device)
+    pos = (~same if ps else same) & valid
+
+    def lse_softmax(mask):
+        sm = torch.where(mask, s, torch.full_like(s, _NEG))
+        m = sm.amax(1, keepdim=True).clamp_min(_MAX_FLOOR)
+        e = torch.where(mask, torch.exp(sm - m), torch.zeros_like(s))
+        ssum = e.sum(1, keepdim=True).clamp_min(_SUM_FLOOR)
+        return torch.log(ssum) + m, e / ssum
+
+    lse_all, p_all = lse_softmax(valid)
+    lse_pos, p_pos = lse_softmax(pos)
+    row_ok = pos.any(1, keepdim=True)
+    n_finite = row_ok.sum().clamp_min(1).to(mu.dtype)
+    return r, r_c, mu_n, lse_all, p_all, lse_pos, p_pos, row_ok, n_finite
+
+
+def snn_fwd_plain(mu: Tensor, label: Tensor, temperature: float,
+                  ps: bool) -> Tensor:
+    """Plain twin of K2f: the SNN / PS-SNN loss, mean over rows with a
+    positive pair."""
+    _, _, _, lse_all, _, lse_pos, _, row_ok, n_finite = _row_stats_plain(
+        mu, label, temperature, ps)
+    rows = torch.where(row_ok, -lse_pos + lse_all, torch.zeros_like(lse_all))
+    return rows.sum() / n_finite
+
+
+def snn_bwd_plain(mu: Tensor, label: Tensor, g: Tensor, temperature: float,
+                  ps: bool) -> Tensor:
+    """Plain twin of K2b: g * dSNN/dmu through the softmax difference, the
+    (G + Gᵀ) mu_n product and the normalization projection."""
+    r, r_c, mu_n, _, p_all, _, p_pos, row_ok, n_finite = _row_stats_plain(
+        mu, label, temperature, ps)
+    G = row_ok.to(mu.dtype) * (p_all - p_pos) / (temperature * n_finite)
+    dmu_n = (G + G.T) @ mu_n
+    inner = (dmu_n * mu_n).sum(1, keepdim=True)
+    proj = torch.where(r > _EPS, inner, torch.zeros_like(inner))
+    return g * (dmu_n - proj * mu_n) / r_c
+
+
+def clear_latent_plain(mu_c, lv_c, mu_s, lv_s, label, temperature: float,
+                       ps: bool):
+    """Plain twin of K1: ([kl_c, kl_s, c_loss, s_loss], dsnn_c, dsnn_s)."""
+    b = mu_c.shape[0]
+    kl_c = -0.5 * (1 + lv_c - mu_c * mu_c - torch.exp(lv_c)).sum() / b
+    kl_s = -0.5 * (1 + lv_s - mu_s * mu_s - torch.exp(lv_s)).sum() / b
+    one = torch.ones((), dtype=mu_c.dtype, device=mu_c.device)
+    c_loss = snn_fwd_plain(mu_c, label, temperature, False)
+    s_loss = snn_fwd_plain(mu_s, label, temperature, ps)
+    dsnn_c = snn_bwd_plain(mu_c, label, one, temperature, False)
+    dsnn_s = snn_bwd_plain(mu_s, label, one, temperature, ps)
+    return torch.stack([kl_c, kl_s, c_loss, s_loss]), dsnn_c, dsnn_s
+
+
+# ---------------------------------------------------------------------------
+# kernel launchers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "fused_loss_scratch_floats": [_I, _I],
+    "clear_latent_fwdgrad": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
+                             _P, _P],
+    "snn_fwd": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
+    "snn_bwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+}
+
+
+def _lib():
+    from clearvae_torch.ops.kernels import _build
+
+    lib = _build.load("fused_loss")
+    if not getattr(lib, "_typed", False):
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check_inputs(label: Tensor, *mats: Tensor):
+    b, z = mats[0].shape
+    for m in mats:
+        if m.device != mats[0].device or m.shape != (b, z):
+            raise ValueError("latent inputs must share one device and a "
+                             f"[B, z] shape; got {m.shape} on {m.device}")
+    if mats[0].device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {mats[0].device}")
+    if z > Z_MAX:
+        raise ValueError(f"the fused kernels take z <= {Z_MAX}; got {z}")
+    if label.shape != (b,):
+        raise ValueError(f"label must be [B]={b}; got {tuple(label.shape)}")
+    return b, z
+
+
+def _f32(t: Tensor) -> Tensor:
+    return t.detach().to(torch.float32).contiguous()
+
+
+def _run(name: str, *args) -> None:
+    lib = _lib()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _scratch(n_halves: int, b: int, z: int, device) -> Tensor:
+    per_half = _lib().fused_loss_scratch_floats(b, z)
+    return torch.empty(n_halves * per_half, dtype=torch.float32, device=device)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, label, temperature: float,
+                         ps: bool):
+    """K1: ([kl_c, kl_s, c_loss, s_loss], dsnn_c, dsnn_s)."""
+    b, z = _check_inputs(label, mu_c, lv_c, mu_s, lv_s)
+    if mu_c.device.type == "cpu":
+        return clear_latent_plain(*(t.detach() for t in (mu_c, lv_c, mu_s, lv_s)),
+                                  label, temperature, ps)
+    dev = mu_c.device
+    ins = [_f32(t) for t in (mu_c, lv_c, mu_s, lv_s)]
+    lbl = label.to(torch.int32).contiguous()
+    out = torch.empty(4, dtype=torch.float32, device=dev)
+    dsnn_c = torch.empty((b, z), dtype=torch.float32, device=dev)
+    dsnn_s = torch.empty((b, z), dtype=torch.float32, device=dev)
+    scratch = _scratch(2, b, z, dev)
+    _run("clear_latent_fwdgrad", *(t.data_ptr() for t in ins), lbl.data_ptr(),
+         b, z, float(temperature), int(bool(ps)), out.data_ptr(),
+         dsnn_c.data_ptr(), dsnn_s.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return out, dsnn_c, dsnn_s
+
+
+def snn_fwd(mu: Tensor, label: Tensor, temperature: float, ps: bool) -> Tensor:
+    """K2f: the SNN / PS-SNN loss of one half (0-d tensor)."""
+    b, z = _check_inputs(label, mu)
+    if mu.device.type == "cpu":
+        return snn_fwd_plain(mu.detach(), label, temperature, ps)
+    m, lbl = _f32(mu), label.to(torch.int32).contiguous()
+    out = torch.empty(1, dtype=torch.float32, device=mu.device)
+    scratch = _scratch(1, b, z, mu.device)
+    _run("snn_fwd", m.data_ptr(), lbl.data_ptr(), b, z, float(temperature),
+         int(bool(ps)), out.data_ptr(), scratch.data_ptr(), _stream(mu.device))
+    return out[0]
+
+
+def snn_bwd(mu: Tensor, label: Tensor, g: Tensor, temperature: float,
+            ps: bool) -> Tensor:
+    """K2b: g * dSNN/dmu of one half; ``g`` is a 0-d tensor on mu's device."""
+    b, z = _check_inputs(label, mu)
+    if mu.device.type == "cpu":
+        return snn_bwd_plain(mu.detach(), label, g, temperature, ps)
+    m, lbl = _f32(mu), label.to(torch.int32).contiguous()
+    gg = _f32(g.reshape(1))
+    dmu = torch.empty((b, z), dtype=torch.float32, device=mu.device)
+    scratch = _scratch(1, b, z, mu.device)
+    _run("snn_bwd", m.data_ptr(), lbl.data_ptr(), gg.data_ptr(), b, z,
+         float(temperature), int(bool(ps)), dmu.data_ptr(), scratch.data_ptr(),
+         _stream(mu.device))
+    return dmu
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _FusedClear(torch.autograd.Function):
+    """K1 forward emits the SNN gradients; backward combines them with the
+    closed-form KL gradients (``_fused_clear_bwd`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, mu_c, lv_c, mu_s, lv_s, label, temperature, ps):
+        out, dsnn_c, dsnn_s = clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s,
+                                                   label, temperature, ps)
+        ctx.save_for_backward(mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s = ctx.saved_tensors
+        b = mu_c.shape[0]
+        g_klc, g_kls, g_c, g_s = g.unbind()
+        dmu_c = g_klc * mu_c / b + g_c * dsnn_c
+        dlv_c = g_klc * (-0.5) * (1.0 - torch.exp(lv_c)) / b
+        dmu_s = g_kls * mu_s / b + g_s * dsnn_s
+        dlv_s = g_kls * (-0.5) * (1.0 - torch.exp(lv_s)) / b
+        return dmu_c, dlv_c, dmu_s, dlv_s, None, None, None
+
+
+class _FusedSNN(torch.autograd.Function):
+    """K2f forward, K2b backward."""
+
+    @staticmethod
+    def forward(ctx, mu, label, temperature, ps):
+        ctx.save_for_backward(mu, label)
+        ctx.temperature, ctx.ps = temperature, ps
+        return snn_fwd(mu, label, temperature, ps)
+
+    @staticmethod
+    def backward(ctx, g):
+        mu, label = ctx.saved_tensors
+        return snn_bwd(mu, label, g, ctx.temperature, ctx.ps), None, None, None
+
+
+def fused_clear_latent_loss(mu_c: Tensor, logvar_c: Tensor, mu_s: Tensor,
+                            logvar_s: Tensor, label: Tensor, *,
+                            temperature: float = 0.1, ps: bool = True):
+    """(kl_c, kl_s, snn(mu_c), snn/ps-snn(mu_s)) from one K1 call.
+
+    The caller negates the style term when ``ps=False`` (reference
+    trainer.py:463-472). Every call pays for the gradient pass, so a
+    forward-only caller uses ``fused_contrastive_loss`` instead.
+    """
+    out = _FusedClear.apply(mu_c, logvar_c, mu_s, logvar_s, label,
+                            float(temperature), bool(ps))
+    return tuple(out.unbind())
+
+
+def fused_contrastive_loss(mu: Tensor, logvar: Tensor, label: Tensor, *,
+                           sim_fn: str = "cosine", temperature: float = 0.1,
+                           loss_name: str = "snn", ps: bool = False) -> Tensor:
+    """Drop-in for :func:`clearvae_torch.ops.losses.contrastive_loss`: the
+    K2f/K2b kernels for cosine/snn, the plain path otherwise."""
+    if sim_fn == "cosine" and loss_name == "snn":
+        return _FusedSNN.apply(mu, label, float(temperature), bool(ps))
+    return L.contrastive_loss(mu, logvar, label, sim_fn=sim_fn,
+                              temperature=temperature, loss_name=loss_name,
+                              ps=ps)
