@@ -5,20 +5,35 @@
 
 Phases, each fatal on failure:
 
-1. build   — compile every ``clearvae_torch/csrc/*.cu`` with nvcc for sm_90a
-             (all sources at once) and print the build time and ptxas report.
-2. kernels — hold each CUDA kernel against its plain PyTorch twin on the
-             card, values and autograd gradients, at (B, z) = (128, 8),
-             (100, 7) and (2048, 8), ps on and off; time kernel and twin with
-             CUDA events at B = 128 and B = 2048.
-3. main    — the flagship configuration through the user entry points:
-             ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
-             β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2 epochs
-             on synthetic Styled-MNIST of the six styles → ``evaluate``.
-             The launch counters are zeroed just before and read just after;
-             one step is also checked fused against unfused on the card.
-             Then a train step is timed and profiled: wall and device-busy
-             ms per step, idle share, kernels per step.
+1. build      — compile every ``clearvae_torch/csrc/*.cu`` with nvcc for
+                sm_90a (one nvcc per source, all started together) and print
+                the build time and ptxas report.
+2. kernels    — hold each CUDA kernel against its plain PyTorch twin on the
+                card. The fused losses K1/K2f/K2b: values and autograd
+                gradients at (B, z) = (128, 8), (100, 7) and (2048, 8), ps on
+                and off, timed at B = 128 and 2048. The styler K3: all seven
+                codes × severities 1–5 at B = 128, 100 and 512 (atol 1e-3 on
+                the 0..255 scale), timed at B = 128 and 512.
+3. main       — the flagship configuration through the user entry points:
+                ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
+                β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
+                epochs on synthetic Styled-MNIST of the six styles, styled
+                once by ``materialize`` (K3) → ``evaluate``. The launch
+                counters are zeroed just before and read just after; one
+                step is also checked fused against unfused on the card. Then
+                a train step is timed and profiled: wall and device-busy ms
+                per step, idle share, kernels per step.
+4. downstream — the Styled-MNIST downstream experiment through its entry
+                point, ``styledmnist_downstream.main`` with
+                ``--style_on_device --models clear --k_min 5 --k_max 5``: the
+                CLEAR-VAE styles every batch on the device (K3), validates,
+                the probe encodes through the fused style→encode pass and
+                trains, and the result JSON is written. Width is the
+                flagship's; depth is cut (20,000 train / 4,000 test synthetic
+                digits, 2 VAE and 2 probe epochs). K3's launches must equal
+                the styled batches and chunks that hold a K3 sample, which
+                the phase counts itself. Then a styled train step is
+                profiled: K3's and styling's share of it.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -52,6 +67,18 @@ REPLACES = {
     "snn_fwd": "clearvae_tpu/ops/pallas/fused_loss.py:76",
     "snn_bwd": "clearvae_tpu/ops/pallas/fused_loss.py:99",
 }
+K3_SOURCE = "clearvae_torch/csrc/style_kernel.cu"
+K3_REPLACES = "clearvae_tpu/ops/pallas/style_kernel.py:52"
+K3_SHAPES = (128, 100, 512)
+K3_TIMED = (128, 512)
+K3_ATOL = 1e-3          # 0..255 scale, the bar of the CPU test against JAX
+# the styles the downstream path sends through K3 (identity, stripe,
+# brightness@5, scale@5), the codes K3 is timed on
+K3_PATH_CODES = (0, 1, 2, 6)
+DOWNSTREAM_ARGS = ["--style_on_device", "--models", "clear", "--k_min", "5",
+                   "--k_max", "5", "--seed", "0", "--epochs", "2",
+                   "--n_train", "20000", "--n_test", "4000",
+                   "--batch_size", "128", "--device", "cuda"]
 
 
 def fail(msg: str):
@@ -226,6 +253,83 @@ def phase_kernels():
     return errs, times
 
 
+def k3_bound(codes: np.ndarray, h: int):
+    """(bound_ms, bound_by) of one K3 call: each pixel read and written once
+    (plus the codes and the zoom matrix) over HBM bandwidth, against the fp32
+    operations each sample's code needs: 2·2·H a pixel for scale's two
+    matrix products, a handful for the elementwise styles."""
+    per_pixel = {0: 0, 1: 1, 2: 5, 3: 1, 4: 3, 5: 8, 6: 4 * h}
+    b = len(codes)
+    nbytes = 4 * (2 * b * h * h + b + h * h)
+    flops = sum(per_pixel[int(c)] for c in codes) * h * h
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_style_kernel():
+    """K3 against style_plain on the card at every code and severity;
+    returns its max error and timings."""
+    from clearvae_torch.data.mnist import synthetic_mnist
+    from clearvae_torch.ops.kernels import style as K3
+
+    dev = torch.device("cuda")
+    digits, _ = synthetic_mnist(max(K3_SHAPES), seed=11)
+    noise = np.random.RandomState(12).rand(*digits.shape).astype(np.float32)
+    imgs = np.where(np.arange(len(digits))[:, None, None] % 3 == 0,
+                    noise * 255, digits)
+    err = 0.0
+    for b in K3_SHAPES:
+        x = torch.as_tensor(imgs[:b], device=dev)
+        code = torch.as_tensor(np.random.RandomState(b).permutation(b) % 7,
+                               dtype=torch.int32, device=dev)
+        for sev in range(1, 6):
+            e = check_close(f"K3 B={b} severity={sev}",
+                            K3.style_batch_kernel(x, code, sev),
+                            K3.style_plain(x, code, sev), rtol=0.0,
+                            atol=K3_ATOL)
+            err = max(err, e)
+        print(f"[kernels] K3 B={b}: 7 codes x severities 1-5, max abs err "
+              f"{err:.2e} (0..255 scale)")
+    times = {}
+    for b in K3_TIMED:
+        x = torch.as_tensor(imgs[:b], device=dev)
+        codes = np.resize(np.asarray(K3_PATH_CODES, np.int32), b)
+        code = torch.as_tensor(codes, device=dev)
+        kern = lambda: K3.style_batch_kernel(x, code, 5)  # noqa: E731
+        plain = lambda: K3.style_plain(x, code, 5)        # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                          cuda_ms(plain))
+        bms, by = k3_bound(codes, x.shape[1])
+        times[b] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bms,
+                        bound_by=by)
+        print(f"[kernels] style_batch B={b} (codes {K3_PATH_CODES}, severity "
+              f"5): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"bound {bms:.6f} ms ({by})")
+    return err, times
+
+
+def k3_launches_expected(styles, style_idx: np.ndarray, batches) -> int:
+    """K3 calls that styling ``batches`` (index arrays into ``style_idx``,
+    -1 for a zero-padded row, which is style 0) makes: one for each batch
+    and severity group that holds a sample."""
+    from clearvae_torch.ops.corruptions import k3_groups
+
+    luts = [np.asarray(lut) for lut in k3_groups(styles).values()]
+    n = 0
+    for idx in batches:
+        s = np.where(idx >= 0, style_idx[np.maximum(idx, 0)], 0)
+        n += sum(bool((lut[s] >= 0).any()) for lut in luts)
+    return n
+
+
+def chunk_batches(n: int, chunk: int):
+    """The rows of ``StyledDataset.chunked_apply``'s chunks, -1 for padding."""
+    return [np.pad(np.arange(s, min(s + chunk, n)),
+                   (0, chunk - (min(s + chunk, n) - s)), constant_values=-1)
+            for s in range(0, n, chunk)]
+
+
 def _small_step_check(dev):
     """One CLEAR step, fused vs unfused, from the same weights and noise."""
     import copy
@@ -257,6 +361,7 @@ def phase_main(gpu):
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist, train_valid_split
     from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.train.factories import get_clearvae_trainer
 
     dev = torch.device("cuda")
@@ -264,12 +369,21 @@ def phase_main(gpu):
     t0 = time.perf_counter()
     imgs, labels = synthetic_mnist(9600, seed=0)
     train_ds, valid_ds = train_valid_split(make_styled_mnist(imgs, labels, seed=0))
+    K3.reset_launches()
     train_ds.materialize(dev)
     valid_ds.materialize(dev)
     torch.cuda.synchronize()
+    k3_materialize = K3.LAUNCHES["style"]
+    want = sum(k3_launches_expected(d.styles, d.style_idx,
+                                    chunk_batches(len(d), 512))
+               for d in (train_ds, valid_ds))
+    if k3_materialize != want:
+        fail(f"K3 launched {k3_materialize} times in materialize; its "
+             f"chunks hold K3 samples {want} times")
     print(f"[main] data: {len(train_ds)} train / {len(valid_ds)} held-out "
           f"images, six styles, made and styled in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; K3 launches in materialize: "
+          f"{k3_materialize} (expected {want})")
     trainer = get_clearvae_trainer(beta=1 / 8, ps=True, vae_lr=5e-4, z_dim=16,
                                    alpha=100, temperature=0.1, seed=0,
                                    verbose_period=1,
@@ -310,7 +424,7 @@ def phase_main(gpu):
           f"epoch 2 {rates[1]:.1f}; {gpu}")
     print(f"[main] launches: {launches}")
     _profile_steps(trainer, train_ds, bs)
-    return launches
+    return {**launches, "style_batch": k3_materialize}
 
 
 def _profile_steps(trainer, train_ds, bs, n: int = 20):
@@ -358,6 +472,256 @@ def _profile_steps(trainer, train_ds, bs, n: int = 20):
         print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
 
 
+class _Recorder:
+    """Wraps methods of the port's trainers for the length of the downstream
+    run: each call's bound arguments, result and seconds (ended by a device
+    synchronize) are kept per name."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, name: str):
+        import functools
+        import inspect
+
+        orig = getattr(owner, attr)
+        sig = inspect.signature(orig)
+
+        @functools.wraps(orig)
+        def timed(*args, **kwargs):
+            bound_args = sig.bind(*args, **kwargs)
+            bound_args.apply_defaults()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.setdefault(name, []).append(dict(
+                args=bound_args.arguments, out=out,
+                s=time.perf_counter() - t0))
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def seconds(self, name: str) -> float:
+        return sum(c["s"] for c in self.calls.get(name, []))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+
+
+def _expected_downstream_k3(rec) -> int:
+    """K3 launches the recorded downstream run must have made: its styled
+    train batches (each epoch's shuffle), its styled eval batches (full ones
+    and the ragged tail) and the chunks of its fused style→encode passes."""
+    n = 0
+    for c in rec.calls["fit"]:
+        a = c["args"]
+        ds, tr = a["train_ds"], a["self"]
+        if not a["style_on_device"]:
+            fail("the downstream fit did not style on the device")
+        bs = min(a["batch_size"], len(ds))
+        nb = len(ds) // bs
+        for e in range(a["start_epoch"], a["start_epoch"] + a["epochs"]):
+            perm = np.random.RandomState(tr.seed + e).permutation(len(ds))
+            n += k3_launches_expected(ds.styles, ds.style_idx,
+                                      perm[: nb * bs].reshape(nb, bs))
+    for c in rec.calls.get("evaluate", []):
+        a = c["args"]
+        ds = a["ds"]
+        if not a["style_on_device"]:
+            fail("a downstream evaluation did not style on the device")
+        bs = min(a["batch_size"], len(ds))
+        batches = [np.arange(s, min(s + bs, len(ds)))
+                   for s in range(0, len(ds), bs)]
+        n += k3_launches_expected(ds.styles, ds.style_idx, batches)
+    for c in rec.calls["encode"]:
+        a = c["args"]
+        ds = a["ds"]
+        if not a["style_on_device"]:
+            fail("a probe encode pass did not style on the device")
+        n += k3_launches_expected(ds.styles, ds.style_idx,
+                                  chunk_batches(len(ds), a["batch_size"]))
+    return n
+
+
+def phase_downstream(gpu, here):
+    """The downstream experiment through its entry point (see the module
+    docstring); returns K3's launches in the run."""
+    import shutil
+
+    from clearvae_torch.experiments import styledmnist_downstream as RUN
+    from clearvae_torch.ops import metrics as MT
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.train import trainers as TR
+
+    out_dir = os.path.join(here, ".runs", "chip_smoke_downstream")
+    shutil.rmtree(out_dir, ignore_errors=True)   # the JSON is a resume manifest
+    rec = _Recorder()
+    rec.wrap(TR.TrainerCore, "fit", "fit")
+    rec.wrap(TR.VAETrainerBase, "evaluate", "evaluate")
+    rec.wrap(MT, "mutual_info_gap", "mig")
+    rec.wrap(TR.DownstreamMLPTrainer, "_encode_all", "encode")
+    rec.wrap(TR.DownstreamMLPTrainer, "fit", "probe_fit")
+    rec.wrap(TR.DownstreamMLPTrainer, "evaluate", "probe_eval")
+    print(f"[downstream] styledmnist_downstream.main {' '.join(DOWNSTREAM_ARGS)}"
+          f" (cut: depth only — synthetic digits, 2 VAE + 2 probe epochs)")
+    K3.reset_launches()
+    FL.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        RUN.main(DOWNSTREAM_ARGS + ["--out", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    wall = time.perf_counter() - t0
+    launches = K3.LAUNCHES["style"]
+    other = dict(FL.LAUNCHES)
+
+    want = _expected_downstream_k3(rec)
+    if launches != want:
+        fail(f"K3 launched {launches} times on the downstream path; its "
+             f"styled batches and chunks hold K3 samples {want} times")
+    trainer = rec.calls["fit"][0]["args"]["self"]
+    for h in trainer.history:
+        for k, v in h.items():
+            if not np.isfinite(v).all():
+                fail(f"non-finite downstream training metric {k}")
+    migs = [c["out"][0] for c in rec.calls["evaluate"]]
+    if not migs or not all(math.isfinite(m) for m in migs):
+        fail(f"downstream validation MIG missing or not finite: {migs}")
+    with open(os.path.join(out_dir, "styledmnist-k5-0.json")) as f:
+        res = json.load(f)
+    r = res.get("clear", {})
+    ok_schema = (list(res) == ["clear"] and set(r) == {"acc", "pr", "roc"}
+                 and all(set(r[p]) == {"overall", "stratified"}
+                         and len(r[p]["stratified"]) == 10
+                         for p in ("pr", "roc")))
+    if not ok_schema or not math.isfinite(r["acc"]) or not 0 <= r["acc"] <= 1:
+        fail(f"the downstream result JSON is malformed: {res}")
+
+    # MIG of the last validation's latents, both backends on the same input
+    m_args = rec.calls["mig"][-1]["args"]
+    lat = (m_args["label"], m_args["latent_c"], m_args["latent_s"])
+    mig_s = {}
+    for backend in ("numpy", "torch", "numpy", "torch"):   # second: warm
+        t1 = time.perf_counter()
+        val = MT.mutual_info_gap(*lat, backend=backend)
+        torch.cuda.synchronize()
+        mig_s.setdefault(backend, [val]).append(time.perf_counter() - t1)
+    fit_s = rec.seconds("fit") - rec.seconds("evaluate")
+    print(f"[downstream] {sum(len(h['loss']) for h in trainer.history)} styled "
+          f"train steps; loss {trainer.history[0]['loss'][0]:.3f} -> "
+          f"{trainer.history[-1]['loss'][-1]:.3f}; validation MIG {migs}; "
+          f"test acc {r['acc']}, AUPR {r['pr']['overall']}, AUROC "
+          f"{r['roc']['overall']}")
+    print(f"[downstream] seconds: whole run {wall:.2f}; VAE fit {fit_s:.2f} "
+          f"(validation excluded); validation {rec.seconds('evaluate'):.2f} "
+          f"({len(rec.calls['evaluate'])} calls, MIG in them "
+          f"{rec.seconds('mig'):.2f}); fused style+encode "
+          f"{rec.seconds('encode'):.2f} ({len(rec.calls['encode'])} passes); "
+          f"probe fit {rec.seconds('probe_fit'):.2f} (its encodes included); "
+          f"probe test eval {rec.seconds('probe_eval'):.2f}; {gpu}")
+    print(f"[downstream] MIG on {len(lat[0])} latents (first/second call): "
+          f"numpy {mig_s['numpy'][0]:.4f} in {mig_s['numpy'][1]:.3f}/"
+          f"{mig_s['numpy'][2]:.3f} s, torch {mig_s['torch'][0]:.4f} in "
+          f"{mig_s['torch'][1]:.3f}/{mig_s['torch'][2]:.3f} s")
+    print(f"[downstream] launches: style_batch {launches} (expected {want}); "
+          f"{other}")
+    _profile_styled_steps(trainer, rec.calls["fit"][0]["args"]["train_ds"])
+    return launches
+
+
+def _device_kernels(prof):
+    """{kernel name: device us} of a profile, without the host ranges that
+    the profiler mirrors onto the device timeline."""
+    from torch.autograd import DeviceType
+
+    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    by_name: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and e.name not in host_names):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return by_name
+
+
+def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
+    """Where a styled train step's time goes: wall ms of styling + step,
+    styling alone and the step alone over n batches, then the device time of
+    each under the profiler, and K3's and styling's share of the styled
+    step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = trainer.device
+    raw, sidx, sids = ds.device_arrays(dev)
+    labels = torch.as_tensor(ds.labels, dtype=torch.int64, device=dev)
+    idx = [torch.arange(i * bs, (i + 1) * bs, device=dev) for i in range(n)]
+    pre = [ds.style(raw[i], sidx[i], sids[i])[..., None] for i in idx]
+
+    def styled():
+        for i in idx:
+            trainer.train_step(ds.style(raw[i], sidx[i], sids[i])[..., None],
+                               labels[i], trainer._draw_eps(bs))
+
+    def style_only():
+        for i in idx:
+            ds.style(raw[i], sidx[i], sids[i])
+
+    def step_only():
+        for i, x in zip(idx, pre):
+            trainer.train_step(x, labels[i], trainer._draw_eps(bs))
+
+    walls, busy, k3 = {}, {}, 0.0
+    for name, fn in (("styled step", styled), ("styling", style_only),
+                     ("step", step_only)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = _device_kernels(prof)
+        if not by_name:
+            fail("the profiler recorded no device activity")
+        busy[name] = sum(by_name.values()) / 1e3 / n
+        if name == "styled step":
+            k3 = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] styled train step (B={bs}): wall {walls['styled step']:.3f}"
+          f" ms, device busy {busy['styled step']:.4f} ms, idle share "
+          f"{1 - busy['styled step'] / walls['styled step']:.3f}")
+    print(f"[profile]   styling alone: wall {walls['styling']:.3f} ms, device "
+          f"{busy['styling']:.4f} ms ({busy['styling'] / busy['styled step']:.3f}"
+          f" of the styled step's device time); K3 {k3:.4f} ms "
+          f"({k3 / busy['styled step']:.4f} of it)")
+    print(f"[profile]   step alone: wall {walls['step']:.3f} ms, device "
+          f"{busy['step']:.4f} ms")
+    # what the zigzag draw table saves: a batch's draws from the threefry
+    # chain itself against the lookup, on the same sample ids
+    from clearvae_torch.ops import corruptions as C
+
+    draw_ms = {}
+    for name, fn in (("chain", C._threefry_draws), ("table", C.zigzag_draws)):
+        fn(ds.seed, sids[idx[0]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in idx:
+            fn(ds.seed, sids[i])
+        torch.cuda.synchronize()
+        draw_ms[name] = (time.perf_counter() - t0) * 1e3 / n
+    print(f"[profile]   zigzag draws of a batch: threefry chain "
+          f"{draw_ms['chain']:.3f} ms wall, draw table {draw_ms['table']:.3f} ms")
+    for name, us in top:
+        print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -375,15 +739,24 @@ def main():
     gpu = gpu_name_and_limit()
     phase_build()
     errs, times = phase_kernels()
+    k3_err, k3_times = phase_style_kernel()
     launches = phase_main(gpu)
+    k3_launches = phase_downstream(gpu, here)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[(name, 128)],
-                    library_ms=None)
+                    library_ms=None,
+                    launches_by_path={"main": launches[name], "downstream": 0})
                for name in REPLACES]
+    kernels.append(dict(name="style_batch", route="cuda", source=K3_SOURCE,
+                        replaces=K3_REPLACES, launches=k3_launches,
+                        max_abs_err=k3_err, **k3_times[128], library_ms=None,
+                        launches_by_path={"main": launches["style_batch"],
+                                          "downstream": k3_launches}))
     print(gpu)
-    print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8},
-                      "b2048": {n: times[(n, 2048)] for n in REPLACES}}))
+    print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
+                      "b2048": {n: times[(n, 2048)] for n in REPLACES},
+                      "b512": {"style_batch": k3_times[512]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

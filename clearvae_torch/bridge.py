@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax VAE variables → a ``VAE`` state_dict.
+"""Weight bridge: the JAX package's flax ``VAE`` and ``ProbeMLP`` variables →
+state dicts of the port's ``VAE`` and ``ProbeMLP``.
 
 Takes the variables as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so it needs no JAX import. The map (after
@@ -81,5 +82,18 @@ def params_from_flax(params: dict, batch_stats: dict) -> dict:
                      or k.startswith("BatchNorm_"))]
     if left:
         raise ValueError(f"flax parameters left unmapped: {sorted(left)}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def probe_params_from_flax(params: dict, batch_stats: dict) -> dict:
+    """State dict of ``clearvae_torch.models.mlp.ProbeMLP`` from the JAX
+    package's ``ProbeMLP`` variables."""
+    if sorted(params) != ["BatchNorm_0", "DenseTorch_0", "DenseTorch_1"]:
+        raise ValueError(f"not a ProbeMLP's parameters: {sorted(params)}")
+    sd: dict = {}
+    _dense(sd, "dense_0", params["DenseTorch_0"]["Dense_0"])
+    _bn(sd, "bn", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    _dense(sd, "dense_1", params["DenseTorch_1"]["Dense_0"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}

@@ -3,9 +3,10 @@
 code/expr/expr_utils.py:7-57).
 
 The style of each sample is fixed at construction (numpy draws, bit-equal to
-the JAX package's); the styling runs on the device in ``materialize``, keyed
-by (dataset seed, absolute sample id), so it is reproducible without storage
-and independent of chunking. Styled images are [N, H, W] float32 in [0, 1]
+the JAX package's); the styling runs on the device, keyed by (dataset seed,
+absolute sample id), so it is reproducible without storage and independent
+of chunking: once for the whole dataset in ``materialize``, or per batch
+from the raw images of ``device_arrays`` (``style_on_device``). Styled images are [N, H, W] float32 in [0, 1]
 (the reference's ToTensor + /255, run_styledmnist_downstream_expr.py:80).
 """
 
@@ -16,6 +17,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES, style_batch
 
@@ -52,7 +54,7 @@ class StyledDataset:
     styles: tuple = EXPERIMENT_STYLES
     seed: int = 0
     sample_ids: np.ndarray | None = None  # absolute ids keying style draws
-    _styled: dict = dataclasses.field(default_factory=dict, repr=False)
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.sample_ids is None:
@@ -61,23 +63,48 @@ class StyledDataset:
     def __len__(self):
         return len(self.labels)
 
+    def device_arrays(self, device):
+        """(raw images [N, H, W] float32 0..255, style_idx int64, sample_ids
+        int64) on ``device``, moved there once: what per-batch styling
+        gathers from, with no styled copy resident."""
+        key = ("raw", str(torch.device(device)))
+        if key not in self._cache:
+            self._cache[key] = (
+                torch.as_tensor(self.images, dtype=torch.float32, device=device),
+                torch.as_tensor(self.style_idx, dtype=torch.int64, device=device),
+                torch.as_tensor(self.sample_ids, dtype=torch.int64, device=device))
+        return self._cache[key]
+
+    def style(self, raw: torch.Tensor, style_idx: torch.Tensor,
+              sample_ids: torch.Tensor) -> torch.Tensor:
+        """Style a gathered raw batch with this dataset's styles and key
+        (the one protocol ``materialize`` and every per-batch path share)."""
+        return style_batch(raw, style_idx, sample_ids, self.seed, self.styles)
+
+    def chunked_apply(self, fn, device, device_batch: int = 512) -> torch.Tensor:
+        """Run ``fn(raw, style_idx, sample_ids)`` over the dataset in
+        fixed-size chunks on ``device``, the last one zero-padded (style 0,
+        sample id 0), and concatenate the unpadded results there. The chunk
+        protocol of ``materialize`` and the probe's fused style→encode pass
+        (``clearvae_tpu/data/styled.py:101-118``)."""
+        raw, sidx, sids = self.device_arrays(device)
+        outs = []
+        for s in range(0, len(self), device_batch):
+            e = min(s + device_batch, len(self))
+            pad = device_batch - (e - s)
+            chunk = [F.pad(t[s:e], (0, 0) * (t.dim() - 1) + (0, pad))
+                     for t in (raw, sidx, sids)]
+            outs.append(fn(*chunk)[: e - s])
+        return torch.cat(outs)
+
     def materialize(self, device, device_batch: int = 512) -> torch.Tensor:
         """The styled dataset, [N, H, W] float32 in [0, 1] on ``device``,
         styled there in chunks once and cached per device."""
-        device = torch.device(device)
-        key = str(device)
-        if key not in self._styled:
-            chunks = []
-            for s in range(0, len(self), device_batch):
-                e = min(s + device_batch, len(self))
-                chunks.append(style_batch(
-                    torch.as_tensor(self.images[s:e], dtype=torch.float32,
-                                    device=device),
-                    torch.as_tensor(self.style_idx[s:e], device=device),
-                    torch.as_tensor(self.sample_ids[s:e], device=device),
-                    self.seed, self.styles))
-            self._styled[key] = torch.cat(chunks)
-        return self._styled[key]
+        key = ("styled", str(torch.device(device)))
+        if key not in self._cache:
+            self._cache[key] = self.chunked_apply(self.style, device,
+                                                   device_batch)
+        return self._cache[key]
 
 
 def make_styled_mnist(images: np.ndarray, labels: np.ndarray,

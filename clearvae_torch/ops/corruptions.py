@@ -4,23 +4,26 @@ code/corruption_utils/corruptions.py).
 
 Every style maps a [B, 28, 28] float32 batch in 0..255 to the same shape
 and range. ``style_batch`` dispatches per sample by style index, in place of
-the JAX package's ``make_style_fn`` + ``vmap``.
+the JAX package's ``make_style_fn`` + ``vmap``: the styles that K3 (the fused
+deterministic styler, ``ops/kernels/style.py``) expresses go through it, one
+call per severity; zigzag and canny are torch ops.
 
-Randomness: only zigzag draws (r0 in [0, 27), dr in [-5, 5)). The draws come
-from a counter-based 32-bit hash of (dataset seed, sample id), computed with
-integer tensor ops on the device: deterministic and independent of batching,
-but not the JAX package's threefry bits, so zigzag samples differ from the
-JAX ones. The other five styles are deterministic.
+Randomness: only zigzag draws (r0 in [0, 27), dr in [-5, 5)), from the
+threefry2x32 key fold_in(key(dataset seed), sample id) exactly as the JAX
+package draws them (``ops/prng.py``), so zigzag samples equal the JAX ones.
+The other five styles are deterministic.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.nn import functional as F
 
-from clearvae_torch.ops.image import (affine_warp, center_affine, conv2d_same,
-                                      gaussian_filter, line_from_points)
+from clearvae_torch.ops import prng as P
+from clearvae_torch.ops.image import (conv2d_same, gaussian_filter,
+                                      line_from_points)
+from clearvae_torch.ops.kernels.style import (DEFAULT_SEVERITY, STYLE_CODES,
+                                              style_batch_kernel)
 
 # The 6 styles used by the Styled-MNIST experiments
 # (reference run_styledmnist_downstream_expr.py:22-29)
@@ -38,66 +41,43 @@ def _as01(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) / 255.0
 
 
-def _to255(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 1.0) * 255.0
-
-
-def identity(x, severity=None):
-    return x.to(torch.float32)
-
-
-def stripe(x, severity=None):
-    """Invert columns < 7 and >= 21."""
-    x = x.to(torch.float32)
-    cols = np.arange(x.shape[-1])
-    flip = torch.as_tensor((cols < 7) | (cols >= 21), dtype=torch.float32,
-                           device=x.device)[None, None, :]
-    return flip * (255.0 - x) + (1 - flip) * x
-
-
-def brightness(x, severity=5):
-    """For grayscale input the reference's gray→HSV→(v+c)→gray round-trip is
-    exactly clip(x + c)."""
-    c = [0.1, 0.2, 0.3, 0.4, 0.5][severity - 1]
-    return _to255(_as01(x) + c)
-
-
-def scale(x, severity=3):
-    c = [1 / 0.9, 1 / 0.8, 1 / 0.7, 1 / 0.6, 1 / 0.5][severity - 1]
-    return _to255(affine_warp(_as01(x), center_affine(c, 0.0, 0.0, c)))
-
-
 # ---------------------------------------------------------------------------
 # zigzag and its draws
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
+
+def _threefry_draws(seed: int, ids: torch.Tensor):
+    k1, k2 = P.split(P.fold_in(P.key(seed, ids.shape, ids.device), ids))
+    return P.randint(k1, 0, 27), P.randint(k2, -5, 5)
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for x in [0, 2^32) held in int64, without overflow."""
-    lo = (x & 0xFFFF) * c
-    hi = (((x >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _hash32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer mix (lowbias32) on int64 tensors."""
-    x = x & _M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+_DRAW_TABLES: dict = {}   # (seed, device) -> (r0, dr) of ids 0 .. len-1
+_TABLE_IDS = 1 << 20
 
 
 def zigzag_draws(seed: int, sample_ids: torch.Tensor):
-    """(r0 in [0, 27), dr in [-5, 5)) per sample, as int64 tensors."""
+    """(r0 in [0, 27), dr in [-5, 5)) per sample, as int64 tensors: the
+    draws of the JAX package's zigzag (corruptions.py:511-515) under the key
+    fold_in(key(seed), sample id).
+
+    Eager torch runs the threefry chain as ~1,100 small kernels, which cost
+    more than the rest of a styled batch. So the draws of ids in
+    [0, 2^20) are looked up in a table per (seed, device), made once by one
+    pass of the chain over a power-of-two range of ids; other ids take the
+    chain directly. Both give the same bits."""
     ids = sample_ids.to(torch.int64)
-    key = _hash32(_hash32(torch.full_like(ids, seed & _M32) ^ 0x9E3779B9) ^ ids)
-    r0 = _hash32(key ^ 0x85EBCA6B) % 27
-    dr = _hash32(key ^ 0xC2B2AE35) % 10 - 5
-    return r0, dr
+    if ids.numel() == 0:
+        return _threefry_draws(seed, ids)
+    low, top = torch.stack([ids.min(), ids.max()]).tolist()
+    if low < 0 or top >= _TABLE_IDS:
+        return _threefry_draws(seed, ids)
+    key = (seed, str(ids.device))
+    table = _DRAW_TABLES.get(key)
+    if table is None or table[0].numel() <= top:
+        table = _threefry_draws(seed, torch.arange(
+            1 << max(12, top.bit_length()), device=ids.device))
+        _DRAW_TABLES[key] = table
+    return table[0][ids], table[1][ids]
 
 
 def zigzag(x, r0: torch.Tensor, dr: torch.Tensor, severity=None):
@@ -196,9 +176,44 @@ def canny_edges(x, severity=None, sigma: float = 1.0, low_threshold: float = 0.1
 # per-sample dispatch
 # ---------------------------------------------------------------------------
 
-STYLE_FNS = {"identity": identity, "stripe": stripe, "zigzag": zigzag,
-             "canny_edges": canny_edges, "scale": scale,
-             "brightness": brightness}
+# the styles K3 does not express
+STYLE_FNS = {"zigzag": zigzag, "canny_edges": canny_edges}
+
+
+def k3_groups(styles=EXPERIMENT_STYLES) -> dict:
+    """{severity: [K3 code of each style index, -1 outside the group]} for
+    the styles K3 expresses. A severity-dependent style joins the group of
+    its resolved severity; the severity-free ones (identity, stripe,
+    inverse) join the first group. ``EXPERIMENT_STYLES`` makes one group, so
+    one K3 call a batch."""
+    resolved = {}   # style index -> (K3 code, severity, None if it has none)
+    for i, (name, severity) in enumerate(styles):
+        if name in DEFAULT_SEVERITY:
+            resolved[i] = (STYLE_CODES[name], severity if severity is not None
+                           else DEFAULT_SEVERITY[name])
+        elif name in STYLE_CODES:
+            resolved[i] = (STYLE_CODES[name], None)
+    sevs = list(dict.fromkeys(s for _, s in resolved.values() if s is not None))
+    groups = {s: [-1] * len(styles) for s in sevs or [5]}
+    for i, (code, s) in resolved.items():
+        groups[next(iter(groups)) if s is None else s][i] = code
+    return groups if resolved else {}
+
+
+_K3_PLANS: dict = {}
+
+
+def _k3_plan(styles, device):
+    """(style indices K3 takes, [(severity, K3 code of each style index as
+    an int32 tensor on ``device``)]), made once per (styles, device)."""
+    key = (tuple(styles), str(device))
+    if key not in _K3_PLANS:
+        groups = k3_groups(styles)
+        _K3_PLANS[key] = (
+            {i for lut in groups.values() for i, c in enumerate(lut) if c >= 0},
+            [(sev, torch.tensor(lut, dtype=torch.int32, device=device))
+             for sev, lut in groups.items()])
+    return _K3_PLANS[key]
 
 
 def style_batch(x: torch.Tensor, style_idx: torch.Tensor,
@@ -206,18 +221,28 @@ def style_batch(x: torch.Tensor, style_idx: torch.Tensor,
                 styles=EXPERIMENT_STYLES) -> torch.Tensor:
     """Style each sample of a [B, H, W] 0..255 batch by its style index and
     apply the reference's /255 (run_styledmnist_downstream_expr.py:80).
-    Zigzag's draws are keyed by (``seed``, sample id)."""
+
+    The samples whose style K3 expresses go through ``style_batch_kernel``,
+    one call per severity group (a CUDA batch launches the kernel or
+    raises); zigzag and canny are torch ops. Zigzag's draws are keyed by
+    (``seed``, sample id)."""
+    x = x.to(torch.float32)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    routed, luts = _k3_plan(styles, x.device)
+    for severity, lut in luts:
+        codes = lut[style_idx.long()]
+        sel = torch.nonzero(codes >= 0).flatten()
+        if sel.numel():
+            out[sel] = style_batch_kernel(x[sel], codes[sel], severity)
     for code, (name, severity) in enumerate(styles):
+        if code in routed:
+            continue
         sel = torch.nonzero(style_idx == code).flatten()
         if sel.numel() == 0:
             continue
         xs = x[sel]
         if name == "zigzag":
-            y = zigzag(xs, *zigzag_draws(seed, sample_ids[sel]))
-        elif severity is None:
-            y = STYLE_FNS[name](xs)
+            out[sel] = zigzag(xs, *zigzag_draws(seed, sample_ids[sel]))
         else:
-            y = STYLE_FNS[name](xs, severity)
-        out[sel] = y
+            out[sel] = STYLE_FNS[name](xs, severity)
     return out / 255.0

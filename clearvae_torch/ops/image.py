@@ -3,8 +3,8 @@
 
 Batched: images are [B, H, W] tensors and per-sample scalars are [B]
 tensors, so one call styles a whole batch on the device. Gaussian filtering
-and 'same' convolutions follow scipy/skimage border modes; bilinear sampling
-and the inverse affine warp follow skimage ``transform.warp`` (order 1).
+and 'same' convolutions follow scipy/skimage border modes. (Scale's zoom is
+K3's interpolation matrix, ``ops/kernels/style.py``.)
 """
 
 from __future__ import annotations
@@ -76,55 +76,6 @@ def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "nearest",
     r = k.shape[0] // 2
     xp = _pad2d(x, r, r, mode)
     return _correlate(_correlate(xp, k[:, None]), k[None, :])
-
-
-def bilinear_sample(img: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
-                    cval: float = 0.0, mode: str = "constant") -> torch.Tensor:
-    """Sample each image of [B, H, W] at its float coordinates (rr, cc)
-    ([B, h, w]) with bilinear weights. mode='constant': out-of-bounds
-    corners contribute ``cval`` (skimage warp order=1); mode='edge': clamp."""
-    b, h, w = img.shape
-    r0, c0 = torch.floor(rr), torch.floor(cc)
-    dr, dc = rr - r0, cc - c0
-    flat = img.reshape(b, -1)
-    out = torch.zeros_like(rr)
-    for ri, ci, wgt in ((r0, c0, (1 - dr) * (1 - dc)),
-                        (r0, c0 + 1, (1 - dr) * dc),
-                        (r0 + 1, c0, dr * (1 - dc)),
-                        (r0 + 1, c0 + 1, dr * dc)):
-        ric = ri.clamp(0, h - 1).long()
-        cic = ci.clamp(0, w - 1).long()
-        vals = flat.gather(1, (ric * w + cic).reshape(b, -1)).view_as(rr)
-        if mode == "constant":
-            inb = (ri >= 0) & (ri <= h - 1) & (ci >= 0) & (ci <= w - 1)
-            vals = torch.where(inb, vals, torch.full_like(vals, cval))
-        out = out + wgt * vals
-    return out
-
-
-def affine_warp(img: torch.Tensor, matrix: torch.Tensor,
-                cval: float = 0.0) -> torch.Tensor:
-    """skimage ``warp(img, inverse_map=AffineTransform(matrix))`` of a
-    [B, H, W] batch; ``matrix`` is one 3×3 (col, row) homogeneous map: the
-    output pixel (r, c) samples the input at (col', row') = M @ (c, r, 1)."""
-    b, h, w = img.shape
-    m = matrix.to(device=img.device, dtype=torch.float32)
-    rows = torch.arange(h, dtype=torch.float32, device=img.device)[:, None].expand(h, w)
-    cols = torch.arange(w, dtype=torch.float32, device=img.device)[None, :].expand(h, w)
-    src_c = m[0, 0] * cols + m[0, 1] * rows + m[0, 2]
-    src_r = m[1, 0] * cols + m[1, 1] * rows + m[1, 2]
-    return bilinear_sample(img, src_r.expand(b, h, w), src_c.expand(b, h, w),
-                           cval=cval, mode="constant")
-
-
-def center_affine(a1: float, a2: float, b1: float, b2: float,
-                  center: float = 13.5) -> torch.Tensor:
-    """The center-preserving 3×3 (col, row) matrix of the reference
-    (corruptions.py:569-574)."""
-    a3 = center * (1.0 - a1 - a2)
-    b3 = center * (1.0 - b1 - b2)
-    return torch.tensor([[a1, a2, a3], [b1, b2, b3], [0.0, 0.0, 1.0]],
-                        dtype=torch.float32)
 
 
 def line_from_points(c0, r0, c1, r1, size: int = 28) -> torch.Tensor:

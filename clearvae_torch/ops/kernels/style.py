@@ -1,0 +1,163 @@
+"""K3, the fused deterministic styler: a CUDA kernel for Hopper, with its
+plain twin.
+
+Counterpart of ``clearvae_tpu/ops/pallas/style_kernel.py``
+(``_style_kernel`` / ``pallas_style_batch``). ``style_batch_kernel`` styles
+a [B, H, W] float32 batch on the 0..255 scale, H == W, selecting per sample
+by a code of ``STYLE_CODES``, all at one severity:
+
+  0 identity; 1 stripe (255 - x on columns < 7 and >= 21); 2 brightness
+  clip(x/255 + c)·255; 3 inverse 255 - x; 4 quantize round(x·L/255)·255/L
+  with L = 2^bits - 1; 5 contrast clip((x01 - mean)·c + mean)·255 around the
+  image's mean; 6 scale clip(A·x01·Aᵀ)·255, A the bilinear zoom matrix.
+
+A code outside 0..6 leaves its sample as it is, as the TPU kernel does.
+The kernel (``clearvae_torch/csrc/style_kernel.cu``) launches for CUDA
+tensors, or the wrapper raises; ``style_plain`` repeats its arithmetic in
+torch ops and is what a CPU tensor takes. ``LAUNCHES["style"]`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+STYLE_CODES = {"identity": 0, "stripe": 1, "brightness": 2, "inverse": 3,
+               "quantize": 4, "contrast": 5, "scale": 6}
+_BRIGHT = (0.1, 0.2, 0.3, 0.4, 0.5)
+_QBITS = (5, 4, 3, 2, 1)
+_CONTR = (0.4, 0.3, 0.2, 0.1, 0.05)
+_SCALE = (1 / 0.9, 1 / 0.8, 1 / 0.7, 1 / 0.6, 1 / 0.5)
+# the severity a style takes when none is given (the per-style defaults of
+# the JAX package's corruptions); the others do not depend on severity
+DEFAULT_SEVERITY = {"brightness": 5, "quantize": 5, "contrast": 4, "scale": 3}
+H_MAX = 64   # the kernel stages an image and one intermediate in shared memory
+
+LAUNCHES = {"style": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["style"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(size: int, factor: float, center: float) -> np.ndarray:
+    """A[i, j] = bilinear weight of source pixel j for output pixel i along
+    one axis of the centre-preserving zoom (out-of-range rows → 0, skimage
+    constant mode)."""
+    a = np.zeros((size, size), np.float32)
+    for i in range(size):
+        src = factor * i + center * (1 - factor)
+        j0 = int(np.floor(src))
+        f = src - j0
+        if 0 <= j0 < size:
+            a[i, j0] += 1 - f
+        if 0 <= j0 + 1 < size:
+            a[i, j0 + 1] += f
+    return a
+
+
+_A_CACHE: dict = {}
+
+
+def _zoom(h: int, severity: int, device) -> Tensor:
+    """The [H, H] zoom matrix of ``severity`` on ``device``, made once."""
+    k = (h, severity, str(device))
+    if k not in _A_CACHE:
+        _A_CACHE[k] = torch.as_tensor(
+            _interp_matrix(h, _SCALE[severity - 1], (h - 1) / 2), device=device)
+    return _A_CACHE[k]
+
+
+def _constants(severity: int):
+    """(brightness shift, quantize multiplier, quantize step, contrast
+    factor) of a severity, as Python floats; each is rounded once to
+    float32 where it meets the data, as JAX's weak typing does."""
+    s = severity - 1
+    levels = float((1 << _QBITS[s]) - 1)
+    return _BRIGHT[s], levels / 255.0, 255.0 / levels, _CONTR[s]
+
+
+def _check(x: Tensor, code: Tensor, severity: int) -> None:
+    if x.dim() != 3 or x.shape[1] != x.shape[2] or x.shape[1] > H_MAX:
+        raise ValueError(f"x must be [B, H, H] with H <= {H_MAX}; got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be contiguous float32")
+    if code.shape != (x.shape[0],) or code.dtype != torch.int32 \
+            or not code.is_contiguous():
+        raise ValueError(f"code must be contiguous int32 [B]={x.shape[0]}; "
+                         f"got {code.dtype} {tuple(code.shape)}")
+    if code.device != x.device or x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"x and code must share a CUDA or CPU device; got "
+                         f"{x.device} and {code.device}")
+    if severity not in (1, 2, 3, 4, 5):
+        raise ValueError(f"severity must be 1..5; got {severity}")
+
+
+def style_plain(x: Tensor, code: Tensor, severity: int) -> Tensor:
+    """Plain twin of K3: every candidate style for every pixel, selected per
+    sample, as the TPU kernel computes it."""
+    _check(x, code, severity)
+    b, h, w = x.shape
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=x.device)
+    bright, q_mul, q_div, contr = (f32(v) for v in _constants(severity))
+    a = _zoom(h, severity, x.device)
+    x01 = x / 255.0
+    cols = torch.arange(w, device=x.device)
+    stripe = torch.where((cols < 7) | (cols >= 21), 255.0 - x, x)
+    brightened = torch.clamp(x01 + bright, 0.0, 1.0) * 255.0
+    inverse = 255.0 - x
+    quant = torch.round(x * q_mul) * q_div
+    mean = x01.mean(dim=(1, 2), keepdim=True)
+    contrasted = torch.clamp((x01 - mean) * contr + mean, 0.0, 1.0) * 255.0
+    scaled = torch.clamp(a @ x01 @ a.T, 0.0, 1.0) * 255.0
+    c = code.view(b, 1, 1)
+    out = x
+    for val, styled in ((1, stripe), (2, brightened), (3, inverse), (4, quant),
+                        (5, contrasted), (6, scaled)):
+        out = torch.where(c == val, styled, out)
+    return out
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    from clearvae_torch.ops.kernels import _build
+
+    lib = _build.load("style_kernel")
+    if not getattr(lib, "_typed", False):
+        lib.style_batch.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P,
+                                    _P]
+        lib.style_batch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def style_batch_kernel(x: Tensor, code: Tensor, severity: int) -> Tensor:
+    """K3: style a [B, H, H] float32 0..255 batch by per-sample ``code``
+    (int32 [B]) at ``severity``. A CUDA batch launches the kernel (or this
+    raises); a CPU batch takes ``style_plain``."""
+    _check(x, code, severity)
+    if x.device.type == "cpu":
+        return style_plain(x, code, severity)
+    b, h, w = x.shape
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    a = _zoom(h, severity, x.device)
+    err = _lib().style_batch(x.data_ptr(), code.data_ptr(), a.data_ptr(), b,
+                             h, w, *_constants(severity), out.data_ptr(),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel style_batch failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES["style"] += 1
+    return out

@@ -1,19 +1,27 @@
-"""MIG from the KSG kNN mutual-information estimator, float64 numpy
-(counterpart of the numpy path of ``clearvae_tpu/ops/metrics.py``, which
-follows sklearn's ``mutual_info_classif``; reference code/src/losses.py:10-16).
+"""MIG from the KSG kNN mutual-information estimator, and the probe's
+classification metrics (counterpart of ``clearvae_tpu/ops/metrics.py``,
+whose KSG follows sklearn's ``mutual_info_classif``; reference
+code/src/losses.py:10-33).
 
 Per-column std scaling (no centering) plus 1e-10-scale tie-breaking noise,
 then per column: radius = distance to the k-th same-class neighbour
 (k = min(n_neighbors, class_count-1)) shrunk by one ulp; m_i = number of
 points (any class, self included) within that radius; samples of singleton
 classes dropped; MI = ψ(N) + mean ψ(k) − mean ψ(class_count) − mean ψ(m).
-The GPU and native backends of the JAX package are not ported yet.
+
+Two backends: float64 numpy (``"numpy"``, also ``"auto"``), and float32
+torch on the device (``"torch"``, the counterpart of the JAX package's jnp
+backend: one [N, N] distance matrix per feature). The JAX package's native
+C++ backend is not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.special import digamma as np_digamma
+
+from clearvae_torch import resolve_device
 
 
 def _mi_cd_numpy(c: np.ndarray, d: np.ndarray, n_neighbors: int) -> float:
@@ -71,15 +79,148 @@ def mutual_info_classif_np(x: np.ndarray, y: np.ndarray, *,
                      for j in range(x.shape[1])])
 
 
-def mutual_info_gap(label, latent_c, latent_s, *,
-                    backend: str = "numpy") -> float:
-    """(mean MI(z_c, y) − mean MI(z_s, y)) / H(y)."""
-    if backend != "numpy":
-        raise ValueError(f"only the numpy MIG backend is ported; got {backend!r}")
-    label = np.asarray(label).ravel().astype(np.int64)
+def _mi_cd_torch(x: torch.Tensor, y: torch.Tensor, n_neighbors: int,
+                 n_classes: int) -> torch.Tensor:
+    """All features of a preprocessed [N, F] float32 x against labels y,
+    one feature at a time (the jnp backend's ``_mi_cd_jnp``)."""
+    n = x.shape[0]
+    label_counts = torch.bincount(y, minlength=n_classes)[y].to(x.dtype)
+    k_all = torch.clamp(label_counts - 1, max=n_neighbors)
+    valid = label_counts > 1
+    same = (y[:, None] == y[None, :]) & ~torch.eye(n, dtype=torch.bool,
+                                                    device=x.device)
+    pick = torch.clamp(k_all - 1, min=0).long()[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    m_all = []
+    for col in x.T:
+        dist = (col[:, None] - col[None, :]).abs()
+        dist_same = torch.where(same, dist, torch.full_like(dist, float("inf")))
+        k = min(n_neighbors, n)
+        kth = torch.topk(dist_same, k, dim=1, largest=False).values.gather(
+            1, torch.clamp(pick, max=k - 1))[:, 0]
+        radius = torch.where(torch.isfinite(kth), torch.nextafter(kth, zero),
+                             zero)
+        within = (dist <= radius[:, None]) & valid[None, :]
+        m_all.append(within.sum(1).to(x.dtype))
+    m_all = torch.stack(m_all, 1)                      # [N, F]
+    vmask = valid.to(x.dtype)
+    n_eff = torch.clamp(vmask.sum(), min=1)
+    dg = torch.special.digamma
+    mean_dg_k = (dg(torch.clamp(k_all, min=1)) * vmask).sum() / n_eff
+    mean_dg_cnt = (dg(torch.clamp(label_counts, min=1)) * vmask).sum() / n_eff
+    mean_dg_m = (dg(torch.clamp(m_all, min=1)) * vmask[:, None]).sum(0) / n_eff
+    return torch.clamp(dg(n_eff) + mean_dg_k - mean_dg_cnt - mean_dg_m, min=0)
+
+
+def mutual_info_classif_torch(x, y, *, n_neighbors: int = 3,
+                              n_classes: int | None = None, seed: int = 0,
+                              device=None) -> np.ndarray:
+    """Per-feature MI(x_col; y) in float32 on ``device`` (default: x's
+    device if x is a tensor, else ``cuda``), with the same preprocessing as
+    the numpy backend; the tie-breaking noise is numpy's of ``seed``."""
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
+    device = resolve_device(device)
+    x = torch.as_tensor(x, device=device).to(torch.float32)
+    if x.dim() == 1:
+        x = x[:, None]
+    y = torch.as_tensor(y, device=device).to(torch.int64).flatten()
+    std = x.std(0, unbiased=False)
+    x = x / torch.where(std > 0, std, torch.ones_like(std))
+    means = torch.clamp(x.abs().mean(0), min=1.0)
+    noise = np.random.RandomState(seed).standard_normal(size=tuple(x.shape))
+    x = x + 1e-10 * means * torch.as_tensor(noise, dtype=torch.float32,
+                                            device=device)
+    nc = n_classes or int(y.max()) + 1
+    return _mi_cd_torch(x, y, n_neighbors, nc).cpu().numpy()
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def mutual_info_gap(label, latent_c, latent_s, *, backend: str = "numpy",
+                    n_classes: int | None = None) -> float:
+    """(mean MI(z_c, y) − mean MI(z_s, y)) / H(y). ``backend`` is
+    ``"numpy"`` (``"auto"`` too) or ``"torch"``, which runs on the latents'
+    device."""
+    label = _host(label).ravel().astype(np.int64)
     p = np.bincount(label) / len(label)
     p = p[p > 0]
     h = float(-(p * np.log(p)).sum())
-    mi_c = mutual_info_classif_np(np.asarray(latent_c), label)
-    mi_s = mutual_info_classif_np(np.asarray(latent_s), label)
+    if backend in ("numpy", "auto"):
+        mi_c = mutual_info_classif_np(_host(latent_c), label)
+        mi_s = mutual_info_classif_np(_host(latent_s), label)
+    elif backend == "torch":
+        nc = n_classes or int(label.max()) + 1
+        mi_c = mutual_info_classif_torch(latent_c, label, n_classes=nc)
+        mi_s = mutual_info_classif_torch(latent_s, label, n_classes=nc)
+    else:
+        raise ValueError(f"unknown MIG backend {backend!r}; the port has "
+                         f"'numpy' and 'torch'")
     return float((mi_c.mean() - mi_s.mean()) / h)
+
+
+# ---------------------------------------------------------------------------
+# Classification metrics (reference: code/src/losses.py:19-33)
+# ---------------------------------------------------------------------------
+
+
+def accuracy(logits, y) -> float:
+    yh = _host(logits).argmax(axis=1).ravel()
+    return float((yh == _host(y).ravel()).mean())
+
+
+def _binary_average_precision(y_true: np.ndarray, score: np.ndarray) -> float:
+    """sklearn average_precision_score (step interpolation, tie-grouped)."""
+    order = np.argsort(-score, kind="mergesort")
+    y_true, score = y_true[order], score[order]
+    distinct = np.where(np.diff(score))[0]
+    idx = np.r_[distinct, y_true.size - 1]
+    tp = np.cumsum(y_true)[idx]
+    fp = (idx + 1) - tp
+    precision = tp / (tp + fp)
+    n_pos = tp[-1]
+    if n_pos == 0:
+        return 0.0
+    recall = tp / n_pos
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def _binary_roc_auc(y_true: np.ndarray, score: np.ndarray) -> float:
+    """Mann–Whitney U with average ranks for ties (== sklearn trapezoid)."""
+    n_pos = int(y_true.sum())
+    n_neg = y_true.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    order = np.argsort(score, kind="mergesort")
+    s_sorted = score[order]
+    ranks = np.empty_like(s_sorted)
+    r = np.arange(1, s_sorted.size + 1, dtype=np.float64)
+    boundaries = np.r_[0, np.where(np.diff(s_sorted))[0] + 1, s_sorted.size]
+    for a, b in zip(boundaries[:-1], boundaries[1:]):
+        ranks[a:b] = r[a:b].mean()
+    rank_of = np.empty_like(ranks)
+    rank_of[order] = ranks
+    u = rank_of[y_true == 1].sum() - n_pos * (n_pos + 1) / 2.0
+    return float(u / (n_pos * n_neg))
+
+
+def _softmax_np(logits: np.ndarray) -> np.ndarray:
+    z = logits - logits.max(axis=1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def auc(logits, y) -> tuple[dict, dict]:
+    """Per-class one-vs-rest AUPR/AUROC dicts, rounded to 3 (losses.py:24-33)."""
+    logits = _host(logits)
+    y = _host(y).ravel().astype(np.int64)
+    num_classes = int(y.max()) + 1
+    ph = _softmax_np(logits)
+    aupr, auroc = {}, {}
+    for i in range(num_classes):
+        yt = (y == i).astype(np.float64)
+        aupr[i] = round(_binary_average_precision(yt, ph[:, i]), 3)
+        auroc[i] = round(_binary_roc_auc(yt, ph[:, i]), 3)
+    return aupr, auroc

@@ -10,6 +10,7 @@ the device, so a step forces no host synchronisation.
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 from clearvae_torch.ops import losses as L
 from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
@@ -99,3 +100,117 @@ def make_clear_vae_eval_step(model, contrastive_cfg):
                 "mu_c": lp["mu_c"], "mu_s": lp["mu_s"]}
 
     return eval_fn
+
+
+# ---------------------------------------------------------------------------
+# Epoch runners: an eager loop over batches gathered by index on the device
+# (the JAX package's scanned epoch programs, steps.py:630-706,823-918)
+# ---------------------------------------------------------------------------
+
+
+def make_epoch_fn(step):
+    """``epoch_fn(data, labels, batch_idx, draw_eps)``: one ``step`` per row
+    of ``batch_idx`` [n_batches, B] on the gathered batch; returns the
+    per-step outputs. A train step or an eval step (``make_eval_epoch_fn``
+    of the JAX package)."""
+
+    def epoch_fn(data, labels, batch_idx, draw_eps):
+        return [step(data[idx], labels[idx], draw_eps(idx.numel()))
+                for idx in batch_idx]
+
+    return epoch_fn
+
+
+def make_styled_epoch_fn(step, styler):
+    """Counterpart of ``make_styled_epoch_fn``: each batch is gathered from
+    the RAW images (0..255, [N, H, W]) by index, styled on the device by
+    ``styler(raw, style_idx, sample_ids)`` (the dataset's one key protocol,
+    ``StyledDataset.style``), given its channel dimension and stepped. Only
+    the raw images stay resident; the pixels equal the materialized
+    path's. With an eval step it is ``make_styled_eval_epoch_fn``."""
+
+    def epoch_fn(raw, labels, style_idx, sample_ids, batch_idx, draw_eps):
+        return [step(styler(raw[idx], style_idx[idx], sample_ids[idx])[..., None],
+                     labels[idx], draw_eps(idx.numel()))
+                for idx in batch_idx]
+
+    return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# Downstream probe (reference DownstreamMLPTrainer, trainer.py:95-165)
+# ---------------------------------------------------------------------------
+
+
+def _ce(logits, label):
+    return F.cross_entropy(logits, label)
+
+
+def _probe_feature_core(mlp, optimizer, mu_c, label):
+    """One Adam step of the probe on features: train-mode forward (updates
+    its BN stats), cross-entropy, backward."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = _ce(mlp(mu_c, train=True), label)
+    loss.backward()
+    optimizer.step()
+    return {"loss": loss.detach()}
+
+
+def make_probe_feature_step(mlp, optimizer):
+    """Probe step on pre-encoded features: ``step(mu_c, label)``."""
+
+    def step_fn(mu_c, label):
+        return _probe_feature_core(mlp, optimizer, mu_c, label)
+
+    return step_fn
+
+
+def make_probe_step(vae_model, mlp, optimizer):
+    """Train the probe on the frozen VAE's mu_c (trainer.py:126-127):
+    ``step(x, label)``. The VAE runs in eval mode (running BN stats) and
+    gets no gradient, as the reference's ``vae.eval()`` sets
+    (run_styledmnist_downstream_expr.py:101)."""
+
+    def step_fn(x, label):
+        with torch.no_grad():
+            mu_c = vae_model.encode(x, train=False)[0]
+        return _probe_feature_core(mlp, optimizer, mu_c, label)
+
+    return step_fn
+
+
+def make_probe_logits_fn(vae_model, mlp):
+    """``logits(x)``: eval-mode encode, then the eval-mode probe."""
+
+    @torch.no_grad()
+    def logits_fn(x):
+        return mlp(vae_model.encode(x, train=False)[0], train=False)
+
+    return logits_fn
+
+
+def make_probe_feature_logits_fn(mlp):
+    """Probe logits from pre-computed mu_c features (the style-on-device
+    path, whose features come from the fused style→encode pass)."""
+
+    @torch.no_grad()
+    def logits_fn(feats):
+        return mlp(feats, train=False)
+
+    return logits_fn
+
+
+def make_probe_feature_epochs_fn(mlp, optimizer):
+    """``epochs_fn(feats, labels, batch_idx)`` with ``batch_idx`` [n_epochs,
+    n_batches, B]: the whole probe training on cached features, one step a
+    batch; returns ``{"loss": [n_epochs]}``, each epoch's last loss."""
+
+    def epochs_fn(feats, labels, batch_idx):
+        losses = []
+        for bi in batch_idx:
+            for idx in bi:
+                m = _probe_feature_core(mlp, optimizer, feats[idx], labels[idx])
+            losses.append(m["loss"])
+        return {"loss": torch.stack(losses)}
+
+    return epochs_fn

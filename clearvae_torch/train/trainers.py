@@ -4,10 +4,11 @@ code/src/trainer.py:41-570).
 The dataset stays resident on the trainer's device; each batch is gathered
 by index, in the JAX package's order: epoch e is shuffled by
 ``np.random.RandomState(seed + e)`` and its ragged tail dropped
-(trainers.py:199-202). Reparameterization noise comes from one
+(trainers.py:199-202). With ``style_on_device`` only the raw images stay
+resident and each batch is styled on the device inside the loop (K3 for the
+deterministic styles). Reparameterization noise comes from one
 ``torch.Generator`` seeded from ``seed``. Checkpoints, the metric logger,
-device-side styling inside the step, multi-epoch dispatch and meshes are not
-ported yet.
+multi-epoch dispatch and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from clearvae_torch import config as C
 from clearvae_torch import resolve_device
+from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
 from clearvae_torch.train import steps as S
 
@@ -51,23 +53,47 @@ class TrainerCore:
                                  device=self.device)
         return x, labels
 
+    def _labels(self, ds) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ds.labels), dtype=torch.int64,
+                               device=self.device)
+
+    def _epoch_runner(self, ds, step, style_on_device: bool):
+        """``run(batch_idx [n, B]) -> [n per-batch outputs]`` of ``step`` over
+        ``ds`` on the device: gathered from the materialized dataset, or,
+        with ``style_on_device`` (StyledDataset only), from the raw images
+        and styled per batch."""
+        labels = self._labels(ds)
+        if style_on_device:
+            if not hasattr(ds, "device_arrays"):
+                raise ValueError("style_on_device requires a StyledDataset "
+                                 f"(raw images + style_idx); got "
+                                 f"{type(ds).__name__}")
+            raw, sidx, sids = ds.device_arrays(self.device)
+            fn = S.make_styled_epoch_fn(step, ds.style)
+            return lambda bi: fn(raw, labels, sidx, sids, bi, self._draw_eps)
+        data, _ = self._device_data(ds)
+        fn = S.make_epoch_fn(step)
+        return lambda bi: fn(data, labels, bi, self._draw_eps)
+
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
-            start_epoch: int = 0):
+            start_epoch: int = 0, style_on_device: bool = False):
         """Train for ``epochs`` epochs from ``start_epoch`` (which keys the
         shuffles; the noise generator continues from its current state).
-        Per-epoch metric arrays are appended to ``self.history``."""
-        data, labels = self._device_data(train_ds)
+        Per-epoch metric arrays are appended to ``self.history``.
+
+        ``style_on_device`` (StyledDataset only) keeps only the raw images
+        on the device and styles each batch there, keyed by (dataset seed,
+        absolute sample id): the same pixels as the materialized path.
+        In-fit validation then styles its batches the same way."""
+        run = self._epoch_runner(train_ds, self.train_step, style_on_device)
         n = len(train_ds)
         batch_size = min(batch_size, n)  # tiny split: shrink, don't drop all
         n_batches = n // batch_size
         for epoch in range(start_epoch, start_epoch + epochs):
             perm = np.random.RandomState(self.seed + epoch).permutation(n)
-            batch_idx = torch.as_tensor(
+            ms = run(torch.as_tensor(
                 perm[: n_batches * batch_size].reshape(n_batches, batch_size),
-                device=self.device)
-            ms = [self.train_step(data[idx], labels[idx],
-                                  self._draw_eps(batch_size))
-                  for idx in batch_idx]
+                device=self.device))
             self.history.append({k: torch.stack([m[k] for m in ms]).cpu().numpy()
                                  for k in ms[0]})
             if epoch % self.verbose_period == 0:
@@ -75,8 +101,13 @@ class TrainerCore:
                         for k, v in self.history[-1].items()}
                 print(f"epoch {epoch}: {last}")
                 if valid_ds is not None:
-                    mig, mse = self.evaluate(valid_ds, batch_size=batch_size)
-                    print(f"gMIG: {round(mig, 3)}; mse: {round(float(mse), 3)}")
+                    self._verbose_valid(
+                        valid_ds, batch_size,
+                        style_on_device=(style_on_device
+                                         and hasattr(valid_ds, "device_arrays")))
+
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+        raise NotImplementedError
 
 
 class VAETrainerBase(TrainerCore):
@@ -88,31 +119,32 @@ class VAETrainerBase(TrainerCore):
         super().__init__(model, verbose_period, seed, device)
         self.mig_backend = "numpy" if mig_backend == "auto" else mig_backend
 
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+        mig, mse = self.evaluate(valid_ds, batch_size=batch_size,
+                                 style_on_device=style_on_device)
+        print(f"gMIG: {round(mig, 3)}; mse: {round(float(mse), 3)}")
+
     @torch.no_grad()
-    def evaluate(self, ds, batch_size: int = 128):
+    def evaluate(self, ds, batch_size: int = 128, style_on_device: bool = False):
         """(gMIG, reconstruction MSE) over the dataset in eval mode
-        (reference evaluate, trainer.py:495-570). The ragged tail is kept;
-        MSE is the mean of the per-batch means."""
-        data, labels = self._device_data(ds)
+        (reference evaluate, trainer.py:495-570): the full batches, then the
+        ragged tail by one direct call; MSE is the mean of the per-batch
+        means. ``style_on_device`` styles each batch on the device from the
+        raw images, as ``fit`` does."""
+        run = self._epoch_runner(ds, self.eval_step, style_on_device)
         n = len(ds)
         bs = min(batch_size, n)
-        totals: dict = {}
-        z_cs, z_ss = [], []
-        n_batches = 0
-        for s in range(0, n, bs):
-            out = self.eval_step(data[s:s + bs], labels[s:s + bs],
-                                 self._draw_eps(min(bs, n - s)))
-            n_batches += 1
-            for k, v in out.items():
-                if v.ndim == 0:
-                    totals[k] = totals.get(k, 0.0) + v
-            z_cs.append(out["z_c"])
-            z_ss.append(out["z_s"])
-        z_c = torch.cat(z_cs).cpu().numpy()
-        z_s = torch.cat(z_ss).cpu().numpy()
-        self.last_eval_totals = {k: float(v) / n_batches
+        nb = n // bs
+        outs = run(torch.arange(nb * bs, device=self.device).view(nb, bs))
+        if n > nb * bs:
+            outs += run(torch.arange(nb * bs, n, device=self.device)[None])
+        totals = {k: sum(o[k] for o in outs) for k, v in outs[0].items()
+                  if v.ndim == 0}
+        self.last_eval_totals = {k: float(v) / len(outs)
                                  for k, v in totals.items()}
-        mig = MT.mutual_info_gap(labels.cpu().numpy(), z_c, z_s,
+        z_c = torch.cat([o["z_c"] for o in outs])
+        z_s = torch.cat([o["z_s"] for o in outs])
+        mig = MT.mutual_info_gap(self._labels(ds), z_c, z_s,
                                  backend=self.mig_backend)
         return mig, self.last_eval_totals["recon"]
 
@@ -145,3 +177,120 @@ class CLEARVAETrainer(VAETrainerBase):
         self.train_step = S.make_clear_vae_step(self.model, self.optimizer,
                                                 anneal, contr)
         self.eval_step = S.make_clear_vae_eval_step(self.model, contr)
+
+
+class DownstreamMLPTrainer:
+    """MLP probe on the frozen VAE's mu_c (reference DownstreamMLPTrainer,
+    trainer.py:95-165; the JAX package's trainers.py:659-824), on the VAE
+    trainer's device. The probe's init is seeded with ``seed``."""
+
+    def __init__(self, vae_trainer: VAETrainerBase, n_class: int = 10,
+                 lr: float = 3e-4, verbose_period: int = 10, seed: int = 0):
+        self.vae_trainer = vae_trainer
+        self.vae_model = vae_trainer.model
+        self.device = vae_trainer.device
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.mlp = ProbeMLP(self.vae_model.z_dim, n_class).to(self.device)
+        self.optimizer = torch.optim.Adam(self.mlp.parameters(), lr=lr)
+        self.verbose_period = verbose_period
+        self.train_step = S.make_probe_step(self.vae_model, self.mlp,
+                                            self.optimizer)
+        self.logits_fn = S.make_probe_logits_fn(self.vae_model, self.mlp)
+        self._feat_epochs_fn = S.make_probe_feature_epochs_fn(self.mlp,
+                                                              self.optimizer)
+        self._feat_logits_fn = S.make_probe_feature_logits_fn(self.mlp)
+
+    @torch.no_grad()
+    def _encode(self, x):
+        return self.vae_model.encode(x, train=False)[0]
+
+    def _encode_all(self, ds, batch_size: int = 512,
+                    style_on_device: bool = False):
+        """(mu_c [N, z_c], labels [N]) on the device from one pass of the
+        frozen eval-mode encoder. Eval-mode encode is deterministic, so this
+        equals the reference's re-encoding of every batch every epoch
+        (trainer.py:126).
+
+        With ``style_on_device`` (StyledDataset only) each fixed-size chunk
+        is styled on the device and encoded in one pass (fused style→encode),
+        with the keys of ``materialize``: the same features, and no styled
+        copy of the dataset."""
+        labels = self.vae_trainer._labels(ds)
+        if style_on_device:
+            if not hasattr(ds, "chunked_apply"):
+                raise ValueError(
+                    "style_on_device requires a StyledDataset carrying raw "
+                    f"images + style indices; got {type(ds).__name__}")
+            feats = ds.chunked_apply(
+                lambda raw, sidx, sids: self._encode(
+                    ds.style(raw, sidx, sids)[..., None]),
+                self.device, batch_size)
+            return feats, labels
+        data, _ = self.vae_trainer._device_data(ds)
+        return torch.cat([self._encode(data[s:s + batch_size])
+                          for s in range(0, len(ds), batch_size)]), labels
+
+    def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
+            cache_features: bool = True, style_on_device: bool = False):
+        """Train the probe. With ``cache_features`` (the default) the frozen
+        encoder runs once and the probe trains on the cached mu_c; epoch e
+        is shuffled by ``RandomState(e)``. Validation runs after epoch 0 and
+        after every ``verbose_period``-th epoch."""
+        if style_on_device and not cache_features:
+            raise ValueError("style_on_device probe training requires "
+                             "cache_features=True (the cached-feature path "
+                             "is where the fused style+encode pass runs)")
+        if cache_features:
+            feats, labels = self._encode_all(train_ds,
+                                             style_on_device=style_on_device)
+            n = len(labels)
+            bs = min(batch_size, n)
+            nb = n // bs
+
+            def _perm(epoch):
+                return (np.random.RandomState(epoch).permutation(n)
+                        [: nb * bs].reshape(nb, bs))
+
+            # the first block is one epoch, so the evaluation points are the
+            # per-epoch path's: after epoch 0, then every verbose_period-th
+            block = (epochs if valid_ds is None
+                     else max(1, int(self.verbose_period)))
+            epoch = 0
+            while epoch < epochs:
+                e = 1 if (valid_ds is not None and epoch == 0) \
+                    else min(block, epochs - epoch)
+                bi = torch.as_tensor(np.stack([_perm(epoch + i)
+                                               for i in range(e)]),
+                                     device=self.device)
+                self._feat_epochs_fn(feats, labels, bi)
+                epoch += e
+                if valid_ds is not None and (epoch - 1) % block == 0:
+                    _, acc = self.evaluate(valid_ds, batch_size,
+                                           style_on_device=style_on_device)
+                    print(f"probe epoch {epoch - 1}: acc={round(acc, 3)}")
+            return
+        data, labels = self.vae_trainer._device_data(train_ds)
+        n = len(train_ds)
+        nb = n // batch_size
+        for epoch in range(epochs):
+            perm = np.random.RandomState(epoch).permutation(n)
+            for idx in torch.as_tensor(perm[: nb * batch_size].reshape(
+                    nb, batch_size), device=self.device):
+                self.train_step(data[idx], labels[idx])
+            if valid_ds is not None and (epoch % self.verbose_period) == 0:
+                _, acc = self.evaluate(valid_ds, batch_size)
+                print(f"probe epoch {epoch}: acc={round(acc, 3)}")
+
+    def evaluate(self, ds, batch_size: int = 128,
+                 style_on_device: bool = False):
+        """((per-class AUPR, per-class AUROC), accuracy) of the probe on
+        ``ds``."""
+        if style_on_device:
+            feats, y = self._encode_all(ds, style_on_device=True)
+            logits = self._feat_logits_fn(feats)
+        else:
+            data, y = self.vae_trainer._device_data(ds)
+            logits = torch.cat([self.logits_fn(data[s:s + batch_size])
+                                for s in range(0, len(ds), batch_size)])
+        return MT.auc(logits, y), MT.accuracy(logits, y)

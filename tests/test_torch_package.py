@@ -16,6 +16,10 @@ import chip_smoke
 import clearvae_torch
 import clearvae_torch.bridge, clearvae_torch.data.styled
 import clearvae_torch.ops.metrics, clearvae_torch.train.factories
+import clearvae_torch.ops.prng, clearvae_torch.ops.kernels.style
+import clearvae_torch.models.mlp, clearvae_torch.train.trainers
+import clearvae_torch.experiments.common
+import clearvae_torch.experiments.styledmnist_downstream
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
