@@ -256,9 +256,10 @@ def phase_kernels():
 def k3_bound(codes: np.ndarray, h: int):
     """(bound_ms, bound_by) of one K3 call: each pixel read and written once
     (plus the codes and the zoom matrix) over HBM bandwidth, against the fp32
-    operations each sample's code needs: 2·2·H a pixel for scale's two
-    matrix products, a handful for the elementwise styles."""
-    per_pixel = {0: 0, 1: 1, 2: 5, 3: 1, 4: 3, 5: 8, 6: 4 * h}
+    operations each sample's code needs: for scale, 2·2·2 a pixel (two
+    passes through the zoom matrix, whose rows hold at most two nonzeros,
+    a multiply and an add each), a handful for the elementwise styles."""
+    per_pixel = {0: 0, 1: 1, 2: 5, 3: 1, 4: 3, 5: 8, 6: 8}
     b = len(codes)
     nbytes = 4 * (2 * b * h * h + b + h * h)
     flops = sum(per_pixel[int(c)] for c in codes) * h * h
@@ -548,7 +549,9 @@ def _expected_downstream_k3(rec) -> int:
 
 def phase_downstream(gpu, here):
     """The downstream experiment through its entry point (see the module
-    docstring); returns K3's launches in the run."""
+    docstring); returns {kernel: launches} of the run. The zoo's ``clear``
+    runs the latent losses unfused, as the JAX zoo does, so K1/K2f/K2b must
+    not launch."""
     import shutil
 
     from clearvae_torch.experiments import styledmnist_downstream as RUN
@@ -584,6 +587,8 @@ def phase_downstream(gpu, here):
     if launches != want:
         fail(f"K3 launched {launches} times on the downstream path; its "
              f"styled batches and chunks hold K3 samples {want} times")
+    if any(other.values()):
+        fail(f"the unfused downstream path launched fused-loss kernels: {other}")
     trainer = rec.calls["fit"][0]["args"]["self"]
     for h in trainer.history:
         for k, v in h.items():
@@ -631,7 +636,7 @@ def phase_downstream(gpu, here):
     print(f"[downstream] launches: style_batch {launches} (expected {want}); "
           f"{other}")
     _profile_styled_steps(trainer, rec.calls["fit"][0]["args"]["train_ds"])
-    return launches
+    return {**other, "style_batch": launches}
 
 
 def _device_kernels(prof):
@@ -656,19 +661,19 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
     from torch.profiler import ProfilerActivity, profile
 
     dev = trainer.device
-    raw, sidx, sids = ds.device_arrays(dev)
+    raw, sidx, draws = ds.device_arrays(dev)
     labels = torch.as_tensor(ds.labels, dtype=torch.int64, device=dev)
     idx = [torch.arange(i * bs, (i + 1) * bs, device=dev) for i in range(n)]
-    pre = [ds.style(raw[i], sidx[i], sids[i])[..., None] for i in idx]
+    pre = [ds.style(raw[i], sidx[i], draws[i])[..., None] for i in idx]
 
     def styled():
         for i in idx:
-            trainer.train_step(ds.style(raw[i], sidx[i], sids[i])[..., None],
+            trainer.train_step(ds.style(raw[i], sidx[i], draws[i])[..., None],
                                labels[i], trainer._draw_eps(bs))
 
     def style_only():
         for i in idx:
-            ds.style(raw[i], sidx[i], sids[i])
+            ds.style(raw[i], sidx[i], draws[i])
 
     def step_only():
         for i, x in zip(idx, pre):
@@ -703,21 +708,20 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
           f"({k3 / busy['styled step']:.4f} of it)")
     print(f"[profile]   step alone: wall {walls['step']:.3f} ms, device "
           f"{busy['step']:.4f} ms")
-    # what the zigzag draw table saves: a batch's draws from the threefry
-    # chain itself against the lookup, on the same sample ids
-    from clearvae_torch.ops import corruptions as C
+    # the set-up cost of the dataset's zigzag draws: one threefry pass over
+    # all its sample ids (made once in device_arrays; batches gather)
+    from clearvae_torch.ops.corruptions import zigzag_draws
 
-    draw_ms = {}
-    for name, fn in (("chain", C._threefry_draws), ("table", C.zigzag_draws)):
-        fn(ds.seed, sids[idx[0]])
+    ids = torch.as_tensor(ds.sample_ids, dtype=torch.int64, device=dev)
+    draw_ms = []
+    for _ in range(2):                                  # second: warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in idx:
-            fn(ds.seed, sids[i])
+        zigzag_draws(ds.seed, ids)
         torch.cuda.synchronize()
-        draw_ms[name] = (time.perf_counter() - t0) * 1e3 / n
-    print(f"[profile]   zigzag draws of a batch: threefry chain "
-          f"{draw_ms['chain']:.3f} ms wall, draw table {draw_ms['table']:.3f} ms")
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[profile]   zigzag draws of all {len(ids)} sample ids, once per "
+          f"dataset: {draw_ms[0]:.3f}/{draw_ms[1]:.3f} ms wall (first/second)")
     for name, us in top:
         print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
 
@@ -741,18 +745,19 @@ def main():
     errs, times = phase_kernels()
     k3_err, k3_times = phase_style_kernel()
     launches = phase_main(gpu)
-    k3_launches = phase_downstream(gpu, here)
+    down = phase_downstream(gpu, here)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[(name, 128)],
                     library_ms=None,
-                    launches_by_path={"main": launches[name], "downstream": 0})
+                    launches_by_path={"main": launches[name],
+                                      "downstream": down[name]})
                for name in REPLACES]
     kernels.append(dict(name="style_batch", route="cuda", source=K3_SOURCE,
-                        replaces=K3_REPLACES, launches=k3_launches,
+                        replaces=K3_REPLACES, launches=down["style_batch"],
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path={"main": launches["style_batch"],
-                                          "downstream": k3_launches}))
+                                          "downstream": down["style_batch"]}))
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048)] for n in REPLACES},

@@ -6,8 +6,9 @@ The style of each sample is fixed at construction (numpy draws, bit-equal to
 the JAX package's); the styling runs on the device, keyed by (dataset seed,
 absolute sample id), so it is reproducible without storage and independent
 of chunking: once for the whole dataset in ``materialize``, or per batch
-from the raw images of ``device_arrays`` (``style_on_device``). Styled images are [N, H, W] float32 in [0, 1]
-(the reference's ToTensor + /255, run_styledmnist_downstream_expr.py:80).
+from the raw images of ``device_arrays`` (``style_on_device``). Styled
+images are [N, H, W] float32 in [0, 1] (the reference's ToTensor + /255,
+run_styledmnist_downstream_expr.py:80).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES, style_batch
+from clearvae_torch.ops.corruptions import (EXPERIMENT_STYLES, style_batch,
+                                            zigzag_draws)
 
 
 def random_style_distribution(styles: Sequence[str], seed: int | None = None) -> dict:
@@ -64,36 +66,40 @@ class StyledDataset:
         return len(self.labels)
 
     def device_arrays(self, device):
-        """(raw images [N, H, W] float32 0..255, style_idx int64, sample_ids
-        int64) on ``device``, moved there once: what per-batch styling
-        gathers from, with no styled copy resident."""
+        """(raw images [N, H, W] float32 0..255, style_idx int64, zigzag
+        draws [N, 2] int64) on ``device``, made there once: what per-batch
+        styling gathers from, with no styled copy resident. The draws are
+        keyed by (seed, absolute sample id), one threefry pass over the
+        dataset's ids."""
         key = ("raw", str(torch.device(device)))
         if key not in self._cache:
+            ids = torch.as_tensor(self.sample_ids, dtype=torch.int64,
+                                  device=device)
             self._cache[key] = (
                 torch.as_tensor(self.images, dtype=torch.float32, device=device),
                 torch.as_tensor(self.style_idx, dtype=torch.int64, device=device),
-                torch.as_tensor(self.sample_ids, dtype=torch.int64, device=device))
+                torch.stack(zigzag_draws(self.seed, ids), 1))
         return self._cache[key]
 
     def style(self, raw: torch.Tensor, style_idx: torch.Tensor,
-              sample_ids: torch.Tensor) -> torch.Tensor:
-        """Style a gathered raw batch with this dataset's styles and key
-        (the one protocol ``materialize`` and every per-batch path share)."""
-        return style_batch(raw, style_idx, sample_ids, self.seed, self.styles)
+              draws: torch.Tensor) -> torch.Tensor:
+        """Style a gathered raw batch with this dataset's styles (the one
+        protocol ``materialize`` and every per-batch path share)."""
+        return style_batch(raw, style_idx, draws, self.styles)
 
     def chunked_apply(self, fn, device, device_batch: int = 512) -> torch.Tensor:
-        """Run ``fn(raw, style_idx, sample_ids)`` over the dataset in
-        fixed-size chunks on ``device``, the last one zero-padded (style 0,
-        sample id 0), and concatenate the unpadded results there. The chunk
-        protocol of ``materialize`` and the probe's fused style→encode pass
+        """Run ``fn(raw, style_idx, draws)`` over the dataset in fixed-size
+        chunks on ``device``, the last one zero-padded (style 0, draws 0),
+        and concatenate the unpadded results there. The chunk protocol of
+        ``materialize`` and the probe's fused style→encode pass
         (``clearvae_tpu/data/styled.py:101-118``)."""
-        raw, sidx, sids = self.device_arrays(device)
+        arrays = self.device_arrays(device)
         outs = []
         for s in range(0, len(self), device_batch):
             e = min(s + device_batch, len(self))
             pad = device_batch - (e - s)
             chunk = [F.pad(t[s:e], (0, 0) * (t.dim() - 1) + (0, pad))
-                     for t in (raw, sidx, sids)]
+                     for t in arrays]
             outs.append(fn(*chunk)[: e - s])
         return torch.cat(outs)
 

@@ -53,9 +53,6 @@ def get_args(argv=None):
     p.add_argument("--n_train", type=int, default=50000)
     p.add_argument("--n_test", type=int, default=10000)
     p.add_argument("--batch_size", type=int, default=128)
-    p.add_argument("--epochs_per_scan", type=int, default=1,
-                   help="accepted for the JAX runner's command line; the "
-                        "port runs one step at a time, so it changes nothing")
     p.add_argument("--k_max", type=int, default=N_STYLES - 1)
     p.add_argument("--k_min", type=int, default=1,
                    help="start the k sweep here (e.g. --k_min 5 --k_max 5 "

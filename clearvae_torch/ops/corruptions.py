@@ -46,38 +46,15 @@ def _as01(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _threefry_draws(seed: int, ids: torch.Tensor):
-    k1, k2 = P.split(P.fold_in(P.key(seed, ids.shape, ids.device), ids))
-    return P.randint(k1, 0, 27), P.randint(k2, -5, 5)
-
-
-_DRAW_TABLES: dict = {}   # (seed, device) -> (r0, dr) of ids 0 .. len-1
-_TABLE_IDS = 1 << 20
-
-
 def zigzag_draws(seed: int, sample_ids: torch.Tensor):
     """(r0 in [0, 27), dr in [-5, 5)) per sample, as int64 tensors: the
     draws of the JAX package's zigzag (corruptions.py:511-515) under the key
-    fold_in(key(seed), sample id).
-
-    Eager torch runs the threefry chain as ~1,100 small kernels, which cost
-    more than the rest of a styled batch. So the draws of ids in
-    [0, 2^20) are looked up in a table per (seed, device), made once by one
-    pass of the chain over a power-of-two range of ids; other ids take the
-    chain directly. Both give the same bits."""
+    fold_in(key(seed), sample id). Eager torch runs this threefry chain as
+    ~1,100 small kernels, so a dataset draws once for all its sample ids
+    (``StyledDataset.device_arrays``) and batches gather from that."""
     ids = sample_ids.to(torch.int64)
-    if ids.numel() == 0:
-        return _threefry_draws(seed, ids)
-    low, top = torch.stack([ids.min(), ids.max()]).tolist()
-    if low < 0 or top >= _TABLE_IDS:
-        return _threefry_draws(seed, ids)
-    key = (seed, str(ids.device))
-    table = _DRAW_TABLES.get(key)
-    if table is None or table[0].numel() <= top:
-        table = _threefry_draws(seed, torch.arange(
-            1 << max(12, top.bit_length()), device=ids.device))
-        _DRAW_TABLES[key] = table
-    return table[0][ids], table[1][ids]
+    k1, k2 = P.split(P.fold_in(P.key(seed, ids.shape, ids.device), ids))
+    return P.randint(k1, 0, 27), P.randint(k2, -5, 5)
 
 
 def zigzag(x, r0: torch.Tensor, dr: torch.Tensor, severity=None):
@@ -216,16 +193,15 @@ def _k3_plan(styles, device):
     return _K3_PLANS[key]
 
 
-def style_batch(x: torch.Tensor, style_idx: torch.Tensor,
-                sample_ids: torch.Tensor, seed: int,
+def style_batch(x: torch.Tensor, style_idx: torch.Tensor, draws: torch.Tensor,
                 styles=EXPERIMENT_STYLES) -> torch.Tensor:
     """Style each sample of a [B, H, W] 0..255 batch by its style index and
     apply the reference's /255 (run_styledmnist_downstream_expr.py:80).
 
     The samples whose style K3 expresses go through ``style_batch_kernel``,
     one call per severity group (a CUDA batch launches the kernel or
-    raises); zigzag and canny are torch ops. Zigzag's draws are keyed by
-    (``seed``, sample id)."""
+    raises); zigzag and canny are torch ops. ``draws`` [B, 2] holds each
+    sample's zigzag draws (r0, dr), from ``zigzag_draws``."""
     x = x.to(torch.float32)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     routed, luts = _k3_plan(styles, x.device)
@@ -242,7 +218,7 @@ def style_batch(x: torch.Tensor, style_idx: torch.Tensor,
             continue
         xs = x[sel]
         if name == "zigzag":
-            out[sel] = zigzag(xs, *zigzag_draws(seed, sample_ids[sel]))
+            out[sel] = zigzag(xs, *draws[sel].unbind(1))
         else:
             out[sel] = STYLE_FNS[name](xs, severity)
     return out / 255.0

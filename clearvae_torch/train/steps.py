@@ -124,13 +124,13 @@ def make_epoch_fn(step):
 def make_styled_epoch_fn(step, styler):
     """Counterpart of ``make_styled_epoch_fn``: each batch is gathered from
     the RAW images (0..255, [N, H, W]) by index, styled on the device by
-    ``styler(raw, style_idx, sample_ids)`` (the dataset's one key protocol,
+    ``styler(raw, style_idx, draws)`` (the dataset's one protocol,
     ``StyledDataset.style``), given its channel dimension and stepped. Only
     the raw images stay resident; the pixels equal the materialized
     path's. With an eval step it is ``make_styled_eval_epoch_fn``."""
 
-    def epoch_fn(raw, labels, style_idx, sample_ids, batch_idx, draw_eps):
-        return [step(styler(raw[idx], style_idx[idx], sample_ids[idx])[..., None],
+    def epoch_fn(raw, labels, style_idx, draws, batch_idx, draw_eps):
+        return [step(styler(raw[idx], style_idx[idx], draws[idx])[..., None],
                      labels[idx], draw_eps(idx.numel()))
                 for idx in batch_idx]
 

@@ -68,9 +68,9 @@ class TrainerCore:
                 raise ValueError("style_on_device requires a StyledDataset "
                                  f"(raw images + style_idx); got "
                                  f"{type(ds).__name__}")
-            raw, sidx, sids = ds.device_arrays(self.device)
+            raw, sidx, draws = ds.device_arrays(self.device)
             fn = S.make_styled_epoch_fn(step, ds.style)
-            return lambda bi: fn(raw, labels, sidx, sids, bi, self._draw_eps)
+            return lambda bi: fn(raw, labels, sidx, draws, bi, self._draw_eps)
         data, _ = self._device_data(ds)
         fn = S.make_epoch_fn(step)
         return lambda bi: fn(data, labels, bi, self._draw_eps)
@@ -223,8 +223,8 @@ class DownstreamMLPTrainer:
                     "style_on_device requires a StyledDataset carrying raw "
                     f"images + style indices; got {type(ds).__name__}")
             feats = ds.chunked_apply(
-                lambda raw, sidx, sids: self._encode(
-                    ds.style(raw, sidx, sids)[..., None]),
+                lambda raw, sidx, draws: self._encode(
+                    ds.style(raw, sidx, draws)[..., None]),
                 self.device, batch_size)
             return feats, labels
         data, _ = self.vae_trainer._device_data(ds)

@@ -127,6 +127,21 @@ def test_zigzag_draws_keyed_by_seed_and_sample():
     assert not torch.equal(r0c, r0)
 
 
+def test_device_arrays_carry_jax_draws_of_absolute_ids(images):
+    """A split half draws once for its own (non-contiguous) sample ids; row
+    i of its draws is JAX's draw for sample id i of that half."""
+    imgs, labels = images
+    for half in TS.train_valid_split(TS.make_styled_mnist(imgs, labels, seed=8),
+                                     seed=2):
+        _, _, draws = half.device_arrays("cpu")
+        keys = jax.vmap(lambda i: jax.random.split(
+            jax.random.fold_in(jax.random.key(8), i)))(half.sample_ids)
+        r0 = jax.vmap(lambda k: jax.random.randint(k, (), 0, 27))(keys[:, 0])
+        dr = jax.vmap(lambda k: jax.random.randint(k, (), -5, 5))(keys[:, 1])
+        np.testing.assert_array_equal(draws.numpy(),
+                                      np.stack([r0, dr], 1).astype(np.int64))
+
+
 def test_materialize_matches_jax_outside_zigzag(images):
     """StyledDataset.materialize styles per sample on the device; all six
     styles, zigzag included (threefry-exact draws), equal the JAX path."""

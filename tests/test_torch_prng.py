@@ -67,10 +67,10 @@ def test_zigzag_draws_are_jax_draws(seed, ids):
                 jax.random.randint(k2, (), -5, 5))
 
     jr0, jdr = jax.vmap(draws)(IDS)
-    r0, dr = zigzag_draws(seed, ids)     # past the table: the chain itself
+    r0, dr = zigzag_draws(seed, ids)
     np.testing.assert_array_equal(r0.numpy(), np.asarray(jr0))
     np.testing.assert_array_equal(dr.numpy(), np.asarray(jdr))
-    small = slice(0, 1064)               # ids to ~1e5: the draw table
+    small = slice(0, 1064)               # keyed by id, not by position
     r0, dr = zigzag_draws(seed, ids[small].flip(0))
     np.testing.assert_array_equal(r0.flip(0).numpy(), np.asarray(jr0)[small])
     np.testing.assert_array_equal(dr.flip(0).numpy(), np.asarray(jdr)[small])

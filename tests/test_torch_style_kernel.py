@@ -69,8 +69,9 @@ def _jax_styled(styles, imgs, style_idx, seed):
 def test_style_batch_routes_k3_and_matches_jax(batch, styles):
     style_idx = np.arange(len(batch), dtype=np.int32) % len(styles)
     ref = _jax_styled(styles, batch, style_idx, 4)
+    draws = torch.stack(TC.zigzag_draws(4, torch.arange(len(batch))), 1)
     got = TC.style_batch(torch.as_tensor(batch), torch.as_tensor(style_idx),
-                         torch.arange(len(batch)), 4, styles)
+                         draws, styles)
     zig = np.asarray([styles[i][0] == "zigzag" for i in style_idx])
     np.testing.assert_allclose(got.numpy()[~zig], ref[~zig], atol=1e-5, rtol=0)
     np.testing.assert_allclose(got.numpy()[zig], ref[zig], atol=2e-5, rtol=0)
