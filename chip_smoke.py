@@ -23,17 +23,32 @@ Phases, each fatal on failure:
                 step is also checked fused against unfused on the card. Then
                 a train step is timed and profiled: wall and device-busy ms
                 per step, idle share, kernels per step.
+5. adversarial — CLEAR-TC and CLEAR-MIM (CLUB-S) at the flagship widths
+                through ``get_cleartcvae_trainer`` / ``get_clearmimvae_trainer``
+                with ``hyperparameter={"fused": True}`` (λ = 1, factor Adam
+                1e-4; λ = 3, estimator Adam 2e-3, 5 inner steps) → ``fit`` for
+                2 epochs on phase 3's data → ``evaluate``. Each run's launch
+                counters are zeroed before and read after: K2f (c_loss
+                forward) and K2b (its backward) once per train step, K1
+                never; the eval is unfused, as in JAX. One step of each is
+                checked fused against unfused on the card, and a train step
+                of each is timed and profiled.
 4. downstream — the Styled-MNIST downstream experiment through its entry
                 point, ``styledmnist_downstream.main`` with
-                ``--style_on_device --models clear --k_min 5 --k_max 5``: the
-                CLEAR-VAE styles every batch on the device (K3), validates,
-                the probe encodes through the fused style→encode pass and
-                trains, and the result JSON is written. Width is the
-                flagship's; depth is cut (20,000 train / 4,000 test synthetic
-                digits, 2 VAE and 2 probe epochs). K3's launches must equal
-                the styled batches and chunks that hold a K3 sample, which
-                the phase counts itself. Then a styled train step is
-                profiled: K3's and styling's share of it.
+                ``--style_on_device --k_min 5 --k_max 5``: all seven zoo
+                entries (baseline CNN, GVAE, ML-VAE, CLEAR, CLEAR-TC,
+                CLEAR-MIM with L1OutUB and with CLUB-S) style every batch on
+                the device (K3) and validate; the VAEs' probes encode through
+                the fused style→encode pass, the CNN classifies through its
+                fused style→logits pass, and the result JSON is written.
+                Width is the flagship's; depth is cut (20,000 train / 4,000
+                test synthetic digits, 2 VAE, CNN and probe epochs). K3's
+                launches must equal the styled batches and chunks that hold
+                a K3 sample, which the phase counts itself; the zoo is
+                unfused, so K1/K2f/K2b must not launch. Then a styled CLEAR
+                train step is profiled: K3's and styling's share of it.
+
+Phases run in the order 1, 2, 3, 5, 4 (phase 5 trains on phase 3's data).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -75,10 +90,17 @@ K3_ATOL = 1e-3          # 0..255 scale, the bar of the CPU test against JAX
 # the styles the downstream path sends through K3 (identity, stripe,
 # brightness@5, scale@5), the codes K3 is timed on
 K3_PATH_CODES = (0, 1, 2, 6)
-DOWNSTREAM_ARGS = ["--style_on_device", "--models", "clear", "--k_min", "5",
+DOWNSTREAM_ARGS = ["--style_on_device", "--k_min", "5",
                    "--k_max", "5", "--seed", "0", "--epochs", "2",
                    "--n_train", "20000", "--n_test", "4000",
                    "--batch_size", "128", "--device", "cuda"]
+ZOO = ["baseline", "gvae", "mlvae", "clear", "clear-tc", "clear-mim (L1OutUB)",
+       "clear-mim (CLUB-S)"]
+# phase 5: the flagship widths, and each trainer's own second player
+ADV_COMMON = dict(beta=1 / 8, vae_lr=5e-4, z_dim=16, alpha=100,
+                  temperature=0.1, seed=0, verbose_period=1,
+                  hyperparameter={"fused": True}, device="cuda")
+ADV_STEPS = 126
 
 
 def fail(msg: str):
@@ -424,17 +446,16 @@ def phase_main(gpu):
     print(f"[main] images/sec: epoch 1 {rates[0]:.1f} (with warm-up), "
           f"epoch 2 {rates[1]:.1f}; {gpu}")
     print(f"[main] launches: {launches}")
-    _profile_steps(trainer, train_ds, bs)
-    return {**launches, "style_batch": k3_materialize}
+    _profile_steps(trainer, train_ds, bs, "[profile] CLEAR fused")
+    return {**launches, "style_batch": k3_materialize}, (train_ds, valid_ds)
 
 
-def _profile_steps(trainer, train_ds, bs, n: int = 20):
-    """Where a train step's time goes, after the main path (its launch
-    counts are already read): wall ms per step over n steps without the
-    profiler, device-busy ms per step from torch.profiler over n more, the
-    idle share of the unprofiled wall, kernels per step and the fused-loss
-    kernels' share."""
-    from torch.autograd import DeviceType
+def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
+    """Where a train step's time goes, after its path's launch counts are
+    read: wall ms per step over n steps without the profiler, device-busy
+    ms per step from torch.profiler over n more, the idle share of the
+    unprofiled wall, kernels per step, the fused-loss kernels' (K1/K2f/K2b,
+    all named fused_loss_*) device ms and share, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     data, labels = trainer._device_data(train_ds)
@@ -444,7 +465,7 @@ def _profile_steps(trainer, train_ds, bs, n: int = 20):
     def steps():
         t0 = time.perf_counter()
         for _ in range(n):
-            trainer.train_step(x, lbl, trainer._draw_eps(bs))
+            trainer.train_step(x, lbl, trainer._train_noise(bs))
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
@@ -452,25 +473,136 @@ def _profile_steps(trainer, train_ds, bs, n: int = 20):
     wall_ms = steps()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall_ms = steps()
-    # a record_function range (Optimizer.step#Adam.step) is mirrored onto the
-    # device timeline under its host name; it spans kernels, it is not one
-    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.name not in host_names]
-    if not kernels:
+    by_name, n_kernels = _device_kernels(prof)
+    if not by_name:
         fail("the profiler recorded no device activity")
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / n
-    fused = sum(v for k, v in by_name.items() if "fused_loss_" in k)
-    print(f"[profile] train step (B={bs}): wall {wall_ms:.3f} ms "
+    fused = sum(v for k, v in by_name.items() if "fused_loss_" in k) / 1e3 / n
+    print(f"{tag} train step (B={bs}): wall {wall_ms:.3f} ms "
           f"({prof_wall_ms:.3f} ms under the profiler), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(kernels) / n:.0f} kernels/step, fused-loss kernels "
-          f"{fused / 1e3 / n:.4f} ms/step")
+          f"{n_kernels / n:.0f} kernels/step, fused-loss kernels "
+          f"{fused:.4f} ms/step ({fused / busy_ms:.4f} of the device time)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
+        print(f"{tag}   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
+
+
+def _adversarial_step_check(dev, b: int = 128):
+    """One CLEAR-TC and one CLEAR-MIM (CLUB-S) step, fused against unfused,
+    from the same weights and draws on the card: metrics within the fused
+    CLEAR step's bar (rtol 1e-4, atol 1e-5); the VAE's parameters within
+    the bar of the CPU step tests (max(1e-3·max|w|, 1.2e-3): Adam moves the
+    biases ahead of BatchNorm on float noise); the second player's within
+    rtol 1e-4, atol 1e-5."""
+    import copy
+
+    from clearvae_torch.config import (AnnealConfig, ContrastiveConfig,
+                                       MIMConfig, TCConfig)
+    from clearvae_torch.models.factor import FactorCls
+    from clearvae_torch.models.mi_estimators import CLUBSample
+    from clearvae_torch.models.vae import VAE
+    from clearvae_torch.train import steps as S
+
+    torch.manual_seed(0)
+    vae = VAE(total_z_dim=16).to(dev)
+    players = {"tc": FactorCls(16).to(dev), "mim": CLUBSample(8, 8, 16).to(dev)}
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.rand(b, 28, 28, 1, generator=g).to(dev)
+    lbl = torch.randint(0, 10, (b,), generator=g).to(dev)
+    eps = [torch.randn(2, b, 8, generator=g).to(dev).unbind(0)
+           for _ in range(2)]
+    noise = {"tc": eps,
+             "mim": {"eps": eps[0], "perm": torch.randperm(b, generator=g).to(dev),
+                     "inner": torch.randn(5, b, 16, generator=g).to(dev)}}
+    for kind, player in players.items():
+        out = {}
+        for fused in (True, False):
+            model, second = copy.deepcopy(vae), copy.deepcopy(player)
+            args = (model, second, torch.optim.Adam(model.parameters(), lr=5e-4),
+                    torch.optim.Adam(second.parameters(),
+                                     lr=1e-4 if kind == "tc" else 2e-3),
+                    AnnealConfig(beta=1 / 8),
+                    ContrastiveConfig(alpha=100.0, fused=fused))
+            step = (S.make_clear_tc_step(*args, TCConfig(la=1.0)) if kind == "tc"
+                    else S.make_clear_mim_step(*args, MIMConfig(la=3.0)))
+            m = step(x, lbl, noise[kind])
+            out[fused] = ({k: float(v) for k, v in m.items()},
+                          model.state_dict(), second.state_dict())
+        (mf, vf, pf), (mu, vu, pu) = out[True], out[False]
+        for k, v in mu.items():
+            if not math.isclose(mf[k], v, rel_tol=1e-4, abs_tol=1e-5):
+                fail(f"{kind} step fused vs unfused on the card: {k} "
+                     f"{mf[k]} vs {v}")
+        worst = 0.0
+        for k, v in vu.items():
+            err = float((vf[k] - v).abs().max())
+            worst = max(worst, err)
+            if err > max(1e-3 * float(v.abs().max()), 1.2e-3):
+                fail(f"{kind} step fused vs unfused: VAE {k} off by {err:.3e}")
+        for k, v in pu.items():
+            check_close(f"{kind} step fused vs unfused: {k}", pf[k], v,
+                        rtol=1e-4, atol=1e-5)
+        print(f"[adversarial] one {kind} step fused == unfused on the card "
+              f"(B={b}); VAE params max |diff| {worst:.2e}: {mf}")
+
+
+def phase_adversarial(gpu, train_ds, valid_ds):
+    """CLEAR-TC and CLEAR-MIM through their factories with the fused c_loss
+    (see the module docstring); returns {kernel: launches} summed over the
+    two runs, each run's counters zeroed just before it and read after."""
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.train.factories import (get_clearmimvae_trainer,
+                                                get_cleartcvae_trainer)
+
+    _adversarial_step_check(torch.device(ADV_COMMON["device"]))
+    runs = {"clear-tc": (get_cleartcvae_trainer,
+                         dict(la=1, factor_cls_lr=1e-4)),
+            "clear-mim (CLUB-S)": (get_clearmimvae_trainer,
+                                   dict(mi_estimator="CLUBSample", la=3,
+                                        mi_estimator_lr=2e-3))}
+    bs = 128
+    total = {k: 0 for k in (*REPLACES, "style_batch")}
+    for name, (factory, kw) in runs.items():
+        trainer = factory(**ADV_COMMON, **kw)
+        FL.reset_launches()
+        K3.reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.fit(2, train_ds, batch_size=bs)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mig, mse = trainer.evaluate(valid_ds, batch_size=bs)
+        eval_s = time.perf_counter() - t0
+        launches = {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"]}
+        hist = {k: np.concatenate([h[k] for h in trainer.history])
+                for k in trainer.history[0]}
+        n_steps = len(hist["loss"])
+        if n_steps != ADV_STEPS:
+            fail(f"{name}: {n_steps} train steps, expected {ADV_STEPS}")
+        for k, v in hist.items():
+            if not np.isfinite(v).all():
+                fail(f"{name}: non-finite training metric {k}")
+        losses = result if name == "clear-tc" else result[0] + result[1]
+        if len(losses) != n_steps * (1 if name == "clear-tc" else 2) or \
+                not np.isfinite(losses).all():
+            fail(f"{name}: fit returned {len(losses)} losses or non-finite ones")
+        if not (math.isfinite(mig) and math.isfinite(mse)):
+            fail(f"{name}: non-finite evaluation: mig={mig} mse={mse}")
+        if launches["snn_fwd"] != n_steps or launches["snn_bwd"] != n_steps:
+            fail(f"{name}: K2f/K2b launched {launches['snn_fwd']}/"
+                 f"{launches['snn_bwd']} times in {n_steps} fused train steps")
+        if launches["clear_latent_fwdgrad"] or launches["style_batch"]:
+            fail(f"{name}: K1 or K3 launched on the adversarial path: {launches}")
+        print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s "
+              f"({n_steps * bs / fit_s:.1f} images/sec, warm-up included); "
+              f"loss {hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f}; "
+              f"eval MIG {mig:.4f}, MSE {mse:.3f} ({eval_s:.2f} s); "
+              f"launches {launches}; {gpu}")
+        for k in total:
+            total[k] += launches[k]
+        _profile_steps(trainer, train_ds, bs, f"[profile] {name}")
+    return total
 
 
 class _Recorder:
@@ -497,7 +629,7 @@ class _Recorder:
             out = orig(*args, **kwargs)
             torch.cuda.synchronize()
             self.calls.setdefault(name, []).append(dict(
-                args=bound_args.arguments, out=out,
+                args=bound_args.arguments, out=out, t0=t0,
                 s=time.perf_counter() - t0))
             return out
 
@@ -514,8 +646,9 @@ class _Recorder:
 
 def _expected_downstream_k3(rec) -> int:
     """K3 launches the recorded downstream run must have made: its styled
-    train batches (each epoch's shuffle), its styled eval batches (full ones
-    and the ragged tail) and the chunks of its fused style→encode passes."""
+    train batches (each epoch's shuffle, every zoo entry), the VAEs' styled
+    eval batches (full ones and the ragged tail), the chunks of the probes'
+    fused style→encode passes and of the CNN's fused style→logits passes."""
     n = 0
     for c in rec.calls["fit"]:
         a = c["args"]
@@ -537,21 +670,22 @@ def _expected_downstream_k3(rec) -> int:
         batches = [np.arange(s, min(s + bs, len(ds)))
                    for s in range(0, len(ds), bs)]
         n += k3_launches_expected(ds.styles, ds.style_idx, batches)
-    for c in rec.calls["encode"]:
-        a = c["args"]
-        ds = a["ds"]
-        if not a["style_on_device"]:
-            fail("a probe encode pass did not style on the device")
-        n += k3_launches_expected(ds.styles, ds.style_idx,
-                                  chunk_batches(len(ds), a["batch_size"]))
+    for name in ("encode", "cnn_evaluate"):
+        for c in rec.calls.get(name, []):
+            a = c["args"]
+            ds = a["ds"]
+            if not a["style_on_device"]:
+                fail(f"a downstream {name} pass did not style on the device")
+            n += k3_launches_expected(ds.styles, ds.style_idx,
+                                      chunk_batches(len(ds), a["batch_size"]))
     return n
 
 
 def phase_downstream(gpu, here):
     """The downstream experiment through its entry point (see the module
-    docstring); returns {kernel: launches} of the run. The zoo's ``clear``
-    runs the latent losses unfused, as the JAX zoo does, so K1/K2f/K2b must
-    not launch."""
+    docstring); returns {kernel: launches} of the run. The zoo runs the
+    latent losses unfused, as the JAX zoo does, so K1/K2f/K2b must not
+    launch."""
     import shutil
 
     from clearvae_torch.experiments import styledmnist_downstream as RUN
@@ -565,12 +699,14 @@ def phase_downstream(gpu, here):
     rec = _Recorder()
     rec.wrap(TR.TrainerCore, "fit", "fit")
     rec.wrap(TR.VAETrainerBase, "evaluate", "evaluate")
+    rec.wrap(TR.SimpleCNNTrainer, "evaluate", "cnn_evaluate")
     rec.wrap(MT, "mutual_info_gap", "mig")
     rec.wrap(TR.DownstreamMLPTrainer, "_encode_all", "encode")
     rec.wrap(TR.DownstreamMLPTrainer, "fit", "probe_fit")
     rec.wrap(TR.DownstreamMLPTrainer, "evaluate", "probe_eval")
     print(f"[downstream] styledmnist_downstream.main {' '.join(DOWNSTREAM_ARGS)}"
-          f" (cut: depth only — synthetic digits, 2 VAE + 2 probe epochs)")
+          f" (all seven zoo entries; cut: depth only — 20,000/4,000 "
+          f"synthetic digits, 2 VAE, CNN and probe epochs)")
     K3.reset_launches()
     FL.reset_launches()
     t0 = time.perf_counter()
@@ -589,24 +725,41 @@ def phase_downstream(gpu, here):
              f"styled batches and chunks hold K3 samples {want} times")
     if any(other.values()):
         fail(f"the unfused downstream path launched fused-loss kernels: {other}")
-    trainer = rec.calls["fit"][0]["args"]["self"]
-    for h in trainer.history:
-        for k, v in h.items():
-            if not np.isfinite(v).all():
-                fail(f"non-finite downstream training metric {k}")
+    trainers = [c["args"]["self"] for c in rec.calls["fit"]]
+    if [type(t).__name__ for t in trainers] != [
+            "SimpleCNNTrainer", "HierarchicalVAETrainer",
+            "HierarchicalVAETrainer", "CLEARVAETrainer", "ClearTCVAETrainer",
+            "ClearMIMVAETrainer", "ClearMIMVAETrainer"]:
+        fail(f"the downstream run fit {[type(t).__name__ for t in trainers]}")
+    for t in trainers:
+        for h in t.history:
+            for k, v in h.items():
+                if not np.isfinite(v).all():
+                    fail(f"non-finite downstream training metric {k} "
+                         f"({type(t).__name__})")
     migs = [c["out"][0] for c in rec.calls["evaluate"]]
-    if not migs or not all(math.isfinite(m) for m in migs):
+    if len(migs) != 6 or not all(math.isfinite(m) for m in migs):
         fail(f"downstream validation MIG missing or not finite: {migs}")
     with open(os.path.join(out_dir, "styledmnist-k5-0.json")) as f:
         res = json.load(f)
-    r = res.get("clear", {})
-    ok_schema = (list(res) == ["clear"] and set(r) == {"acc", "pr", "roc"}
-                 and all(set(r[p]) == {"overall", "stratified"}
-                         and len(r[p]["stratified"]) == 10
-                         for p in ("pr", "roc")))
-    if not ok_schema or not math.isfinite(r["acc"]) or not 0 <= r["acc"] <= 1:
+    ok_schema = list(res) == ZOO and all(
+        set(r) == {"acc", "pr", "roc"} and math.isfinite(r["acc"])
+        and 0 <= r["acc"] <= 1
+        and all(set(r[p]) == {"overall", "stratified"}
+                and len(r[p]["stratified"]) == 10 for p in ("pr", "roc"))
+        for r in res.values())
+    if not ok_schema:
         fail(f"the downstream result JSON is malformed: {res}")
-
+    starts = [c["t0"] for c in rec.calls["fit"]] + [t0 + wall]
+    for name, t, a, b, c in zip(ZOO, trainers, starts, starts[1:],
+                                rec.calls["fit"]):
+        r = res[name]
+        print(f"[downstream] {name}: {b - a:.2f} s in all (fit {c['s']:.2f} s "
+              f"with its validation, {sum(len(h['loss']) for h in t.history)} "
+              f"styled steps); test acc {r['acc']}, AUPR {r['pr']['overall']},"
+              f" AUROC {r['roc']['overall']}")
+    clear = trainers[ZOO.index("clear")]
+    clear_fit = rec.calls["fit"][ZOO.index("clear")]
     # MIG of the last validation's latents, both backends on the same input
     m_args = rec.calls["mig"][-1]["args"]
     lat = (m_args["label"], m_args["latent_c"], m_args["latent_s"])
@@ -616,41 +769,49 @@ def phase_downstream(gpu, here):
         val = MT.mutual_info_gap(*lat, backend=backend)
         torch.cuda.synchronize()
         mig_s.setdefault(backend, [val]).append(time.perf_counter() - t1)
-    fit_s = rec.seconds("fit") - rec.seconds("evaluate")
-    print(f"[downstream] {sum(len(h['loss']) for h in trainer.history)} styled "
-          f"train steps; loss {trainer.history[0]['loss'][0]:.3f} -> "
-          f"{trainer.history[-1]['loss'][-1]:.3f}; validation MIG {migs}; "
-          f"test acc {r['acc']}, AUPR {r['pr']['overall']}, AUROC "
-          f"{r['roc']['overall']}")
-    print(f"[downstream] seconds: whole run {wall:.2f}; VAE fit {fit_s:.2f} "
-          f"(validation excluded); validation {rec.seconds('evaluate'):.2f} "
-          f"({len(rec.calls['evaluate'])} calls, MIG in them "
-          f"{rec.seconds('mig'):.2f}); fused style+encode "
-          f"{rec.seconds('encode'):.2f} ({len(rec.calls['encode'])} passes); "
-          f"probe fit {rec.seconds('probe_fit'):.2f} (its encodes included); "
-          f"probe test eval {rec.seconds('probe_eval'):.2f}; {gpu}")
+    # every VAE validation and all but the last CNN evaluation (the test
+    # one) ran inside a fit
+    cnn_valid_s = sum(c["s"] for c in rec.calls["cnn_evaluate"][:-1])
+    fit_s = rec.seconds("fit") - rec.seconds("evaluate") - cnn_valid_s
+    print(f"[downstream] clear: loss {clear.history[0]['loss'][0]:.3f} -> "
+          f"{clear.history[-1]['loss'][-1]:.3f}; validation MIG of the six "
+          f"VAEs {migs}")
+    print(f"[downstream] seconds: whole run {wall:.2f}; fits {fit_s:.2f} "
+          f"(validation excluded); VAE validation "
+          f"{rec.seconds('evaluate'):.2f} ({len(rec.calls['evaluate'])} calls, "
+          f"MIG in them {rec.seconds('mig'):.2f}); CNN evaluation "
+          f"{rec.seconds('cnn_evaluate'):.2f} "
+          f"({len(rec.calls['cnn_evaluate'])} calls, the test one included); "
+          f"fused style+encode {rec.seconds('encode'):.2f} "
+          f"({len(rec.calls['encode'])} passes); probe fit "
+          f"{rec.seconds('probe_fit'):.2f} (its encodes included); probe test "
+          f"eval {rec.seconds('probe_eval'):.2f}; {gpu}")
     print(f"[downstream] MIG on {len(lat[0])} latents (first/second call): "
           f"numpy {mig_s['numpy'][0]:.4f} in {mig_s['numpy'][1]:.3f}/"
           f"{mig_s['numpy'][2]:.3f} s, torch {mig_s['torch'][0]:.4f} in "
           f"{mig_s['torch'][1]:.3f}/{mig_s['torch'][2]:.3f} s")
     print(f"[downstream] launches: style_batch {launches} (expected {want}); "
           f"{other}")
-    _profile_styled_steps(trainer, rec.calls["fit"][0]["args"]["train_ds"])
+    _profile_styled_steps(clear, clear_fit["args"]["train_ds"])
     return {**other, "style_batch": launches}
 
 
 def _device_kernels(prof):
-    """{kernel name: device us} of a profile, without the host ranges that
-    the profiler mirrors onto the device timeline."""
+    """({kernel name: device us}, kernel count) of a profile, without the
+    host ranges that the profiler mirrors onto the device timeline (a
+    record_function range such as Optimizer.step#Adam.step spans kernels;
+    it is not one)."""
     from torch.autograd import DeviceType
 
     host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
     by_name: dict = {}
+    n = 0
     for e in prof.events():
         if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
                 and e.name not in host_names):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return by_name
+            n += 1
+    return by_name, n
 
 
 def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
@@ -669,7 +830,7 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
     def styled():
         for i in idx:
             trainer.train_step(ds.style(raw[i], sidx[i], draws[i])[..., None],
-                               labels[i], trainer._draw_eps(bs))
+                               labels[i], trainer._train_noise(bs))
 
     def style_only():
         for i in idx:
@@ -677,7 +838,7 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
 
     def step_only():
         for i, x in zip(idx, pre):
-            trainer.train_step(x, labels[i], trainer._draw_eps(bs))
+            trainer.train_step(x, labels[i], trainer._train_noise(bs))
 
     walls, busy, k3 = {}, {}, 0.0
     for name, fn in (("styled step", styled), ("styling", style_only),
@@ -692,7 +853,7 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        by_name = _device_kernels(prof)
+        by_name, _ = _device_kernels(prof)
         if not by_name:
             fail("the profiler recorded no device activity")
         busy[name] = sum(by_name.values()) / 1e3 / n
@@ -744,20 +905,30 @@ def main():
     phase_build()
     errs, times = phase_kernels()
     k3_err, k3_times = phase_style_kernel()
-    launches = phase_main(gpu)
+    launches, (train_ds, valid_ds) = phase_main(gpu)
+    adv = phase_adversarial(gpu, train_ds, valid_ds)
     down = phase_downstream(gpu, here)
+    by_path = {name: {"main": launches[name], "adversarial": adv[name],
+                      "downstream": down[name]}
+               for name in (*REPLACES, "style_batch")}
+    # ``launches``: each kernel's count on the path that its slice put it on
+    # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
+    # CLEAR-MIM trainers; K3: the downstream zoo)
+    own = {"clear_latent_fwdgrad": "main", "snn_fwd": "adversarial",
+           "snn_bwd": "adversarial", "style_batch": "downstream"}
+    for name, path in own.items():
+        if by_path[name][path] == 0:
+            fail(f"{name} was launched no time on the {path} path")
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
+                    replaces=REPLACES[name], launches=by_path[name][own[name]],
                     max_abs_err=errs[name], **times[(name, 128)],
-                    library_ms=None,
-                    launches_by_path={"main": launches[name],
-                                      "downstream": down[name]})
+                    library_ms=None, launches_by_path=by_path[name])
                for name in REPLACES]
     kernels.append(dict(name="style_batch", route="cuda", source=K3_SOURCE,
-                        replaces=K3_REPLACES, launches=down["style_batch"],
+                        replaces=K3_REPLACES,
+                        launches=by_path["style_batch"]["downstream"],
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
-                        launches_by_path={"main": launches["style_batch"],
-                                          "downstream": down["style_batch"]}))
+                        launches_by_path=by_path["style_batch"]))
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048)] for n in REPLACES},

@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's flax ``VAE`` and ``ProbeMLP`` variables →
-state dicts of the port's ``VAE`` and ``ProbeMLP``.
+"""Weight bridge: the JAX package's flax variables → state dicts of the
+port's modules of the same names (``VAE``, ``ProbeMLP``, ``FactorCls``, the
+MI estimators, ``SimpleCNN``).
 
 Takes the variables as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so it needs no JAX import. The map (after
@@ -32,29 +33,41 @@ def _bn(sd, prefix, p, s):
     sd[f"{prefix}.running_var"] = np.asarray(s["var"])
 
 
+def _tensors(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def _conv_stack(sd, prefix, p, s) -> set:
+    """A ``ConvBNReluStack``'s convs and BatchNorms; returns the flax names
+    it mapped."""
+    used = set()
+    n_conv = sum(k.startswith("BatchNorm_") for k in p)
+    # with first_conv_pack the first conv is Conv1MXUPack_0 (same kernel
+    # shape) and flax numbers the remaining ConvTorch modules from 0
+    packed = "Conv1MXUPack_0" in p
+    for i in range(n_conv):
+        if packed and i == 0:
+            conv, name = p["Conv1MXUPack_0"], "Conv1MXUPack_0"
+        else:
+            name = f"ConvTorch_{i - packed}"
+            conv = p[name]["Conv_0"]
+        sd[f"{prefix}.convs.{i}.weight"] = np.asarray(conv["kernel"]).transpose(
+            3, 2, 0, 1)
+        sd[f"{prefix}.convs.{i}.bias"] = np.asarray(conv["bias"])
+        _bn(sd, f"{prefix}.bns.{i}", p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"])
+        used |= {name, f"BatchNorm_{i}"}
+    return used
+
+
 def params_from_flax(params: dict, batch_stats: dict) -> dict:
     """State dict of ``clearvae_torch.models.vae.VAE`` from the JAX
     package's ``VAE`` variables. Raises if a flax parameter is left
     unmapped."""
     sd: dict = {}
-    used: set = set()
-    enc, enc_s = params["encoder"], batch_stats["encoder"]
-    n_conv = sum(k.startswith("BatchNorm_") for k in enc)
-    # with first_conv_pack the first conv is Conv1MXUPack_0 (same kernel
-    # shape) and flax numbers the remaining ConvTorch modules from 0
-    packed = "Conv1MXUPack_0" in enc
-    for i in range(n_conv):
-        if packed and i == 0:
-            conv, name = enc["Conv1MXUPack_0"], "Conv1MXUPack_0"
-        else:
-            name = f"ConvTorch_{i - packed}"
-            conv = enc[name]["Conv_0"]
-        sd[f"encoder.convs.{i}.weight"] = np.asarray(conv["kernel"]).transpose(
-            3, 2, 0, 1)
-        sd[f"encoder.convs.{i}.bias"] = np.asarray(conv["bias"])
-        _bn(sd, f"encoder.bns.{i}", enc[f"BatchNorm_{i}"],
-            enc_s[f"BatchNorm_{i}"])
-        used |= {("encoder", name), ("encoder", f"BatchNorm_{i}")}
+    enc = params["encoder"]
+    used = {("encoder", k) for k in _conv_stack(sd, "encoder", enc,
+                                                batch_stats["encoder"])}
     used.add(("encoder",))
 
     heads = ("latent_heads",) if "latent_heads" in params else (
@@ -82,8 +95,7 @@ def params_from_flax(params: dict, batch_stats: dict) -> dict:
                      or k.startswith("BatchNorm_"))]
     if left:
         raise ValueError(f"flax parameters left unmapped: {sorted(left)}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def probe_params_from_flax(params: dict, batch_stats: dict) -> dict:
@@ -95,5 +107,51 @@ def probe_params_from_flax(params: dict, batch_stats: dict) -> dict:
     _dense(sd, "dense_0", params["DenseTorch_0"]["Dense_0"])
     _bn(sd, "bn", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
     _dense(sd, "dense_1", params["DenseTorch_1"]["Dense_0"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def factor_params_from_flax(params: dict) -> dict:
+    """State dict of ``clearvae_torch.models.factor.FactorCls`` from the JAX
+    package's ``FactorCls`` params."""
+    if sorted(params) != ["DenseTorch_0", "DenseTorch_1"]:
+        raise ValueError(f"not a FactorCls's parameters: {sorted(params)}")
+    sd: dict = {}
+    for i in range(2):
+        _dense(sd, f"dense_{i}", params[f"DenseTorch_{i}"]["Dense_0"])
+    return _tensors(sd)
+
+
+def mi_params_from_flax(params: dict) -> dict:
+    """State dict of an estimator of ``clearvae_torch.models.mi_estimators``
+    from the JAX package's estimator of the same name: its submodules carry
+    the flax names (``net.mu_l1``, ``mu_out``, ``f_l1``, ...), each a
+    ``DenseTorch``."""
+    sd: dict = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if k == "Dense_0":
+                _dense(sd, ".".join(path), v)
+            elif isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                raise ValueError(f"not a DenseTorch parameter: {path + (k,)}")
+
+    walk(params, ())
+    return _tensors(sd)
+
+
+def cnn_params_from_flax(params: dict, batch_stats: dict) -> dict:
+    """State dict of ``clearvae_torch.models.cnn.SimpleCNN`` from the JAX
+    package's ``SimpleCNN`` variables."""
+    if sorted(params) != ["hidden", "hidden_bn", "net", "out"]:
+        raise ValueError(f"not a SimpleCNN's parameters: {sorted(params)}")
+    sd: dict = {}
+    used = _conv_stack(sd, "net", params["net"], batch_stats["net"])
+    if used != set(params["net"]):
+        raise ValueError("flax parameters left unmapped: "
+                         f"{sorted(set(params['net']) - used)}")
+    _dense(sd, "hidden", params["hidden"]["Dense_0"])
+    _bn(sd, "hidden_bn", params["hidden_bn"], batch_stats["hidden_bn"])
+    _dense(sd, "out", params["out"]["Dense_0"])
+    return _tensors(sd)

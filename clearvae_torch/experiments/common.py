@@ -10,7 +10,7 @@ import os
 
 import numpy as np
 
-from clearvae_torch.train.trainers import DownstreamMLPTrainer
+from clearvae_torch.train.trainers import DownstreamMLPTrainer, SimpleCNNTrainer
 
 
 def experiment_helper(train_ds, valid_ds, test_ds, vae_trainer, epochs: int,
@@ -42,9 +42,9 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
     (reference run_styledmnist_downstream_expr.py:190-216).
 
     With ``resume_path`` the results JSON is also a manifest: models already
-    in it are skipped, and each finished model is written at once. Every
-    entry is a VAE judged by the probe; the discriminative CNN entries wait
-    for their trainers (ROADMAP Queue 1 item 9)."""
+    in it are skipped, and each finished model is written at once. A
+    ``SimpleCNNTrainer`` entry is trained and tested as a classifier; every
+    other entry is a VAE judged by the probe."""
     results = {}
     if resume_path and os.path.exists(resume_path):
         with open(resume_path) as f:
@@ -56,10 +56,16 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
             continue
         print(f"\nTraining {model_name}:")
         trainer = trainer_func(**params)
-        aupr, auroc, acc = experiment_helper(
-            train_ds, valid_ds, test_ds, trainer, epochs,
-            batch_size=batch_size, n_class=n_class, probe_epochs=probe_epochs,
-            style_on_device=style_on_device)
+        if isinstance(trainer, SimpleCNNTrainer):
+            trainer.fit(epochs, train_ds, valid_ds, batch_size=batch_size,
+                        style_on_device=style_on_device)
+            (aupr, auroc), acc = trainer.evaluate(
+                test_ds, batch_size=batch_size, style_on_device=style_on_device)
+        else:
+            aupr, auroc, acc = experiment_helper(
+                train_ds, valid_ds, test_ds, trainer, epochs,
+                batch_size=batch_size, n_class=n_class,
+                probe_epochs=probe_epochs, style_on_device=style_on_device)
         results[model_name] = {
             "acc": round(float(acc), 3),
             "pr": {"overall": round(float(np.mean(list(aupr.values()))), 3),

@@ -3,8 +3,9 @@ of ``clearvae_tpu/experiments/styledmnist_downstream.py``; reference
 code/run_styledmnist_downstream_expr.py).
 
 For k = k_min..k_max, each class gets k random training styles (of 6) and
-the complement as test styles; each zoo model is trained, its frozen encoder
-probed by an MLP on mu_c, and
+the complement as test styles; the 7-model zoo {baseline CNN, GVAE, MLVAE,
+CLEAR(ps), CLEAR-TC, CLEAR-MIM(L1OutUB), CLEAR-MIM(CLUB-S)} is trained, each
+VAE's frozen encoder probed by an MLP on mu_c, and
 ``<out>/styledmnist-k{k}-{seed}.json`` written with the reference's result
 schema. Defaults are the reference's (epochs 41, α=1e2, τ=0.1, β=1/8, z=16,
 Adam 5e-4, batch 128; run_styledmnist_downstream_expr.py:36-53,231-238).
@@ -15,9 +16,8 @@ Usage:
       [--style_on_device] [--models clear] [--device cuda|cpu] [--out DIR]
 
 Without --data_root_path (or when the MNIST idx files are absent) the
-synthetic digits are used, so the run needs no download. So far only the
-``clear`` entry of the zoo is ported; the others raise and name the ROADMAP
-item that ports them.
+synthetic digits are used, so the run needs no download. The zoo's latent
+losses are unfused, as in the JAX zoo.
 """
 
 from __future__ import annotations
@@ -33,7 +33,11 @@ from clearvae_torch.data.styled import (generate_style_dict,
 from clearvae_torch.experiments.common import (filter_models, run_model_zoo,
                                                save_results)
 from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES
-from clearvae_torch.train.factories import get_clearvae_trainer
+from clearvae_torch.train.factories import (get_clearmimvae_trainer,
+                                            get_clearvae_trainer,
+                                            get_cleartcvae_trainer,
+                                            get_cnn_trainer,
+                                            get_hierarchical_vae_trainer)
 
 N_STYLES = len(EXPERIMENT_STYLES)
 
@@ -91,27 +95,33 @@ def get_data_splits(data_root_path, k: int, seed: int, n_train: int,
     return style_dict, train, valid, test
 
 
-def _not_ported(name: str, item: str):
-    def factory(**_):
-        raise NotImplementedError(
-            f"the {name!r} zoo entry is not ported to clearvae_torch yet "
-            f"(ROADMAP Queue 1 item {item}); run --models clear")
-
-    return factory
-
-
 def model_zoo(trainer_kwargs: dict, seed: int) -> dict:
     """The 7-model zoo with the reference hyperparameters
-    (run_styledmnist_downstream_expr.py:137-188)."""
+    (run_styledmnist_downstream_expr.py:137-188). ``trainer_kwargs``'s
+    ``device`` reaches every entry."""
     common = dict(trainer_kwargs)
+    device = {"device": common["device"]} if "device" in common else {}
     return {
-        "baseline": (_not_ported("baseline", "9"), {}),
-        "gvae": (_not_ported("gvae", "10"), {}),
-        "mlvae": (_not_ported("mlvae", "10"), {}),
+        "baseline": (get_cnn_trainer, {"n_class": 10, "seed": seed, **device}),
+        "gvae": (get_hierarchical_vae_trainer,
+                 {"beta": common["beta"], "vae_lr": 5e-4,
+                  "z_dim": common["z_dim"], "group_mode": "GVAE",
+                  "seed": seed, **device}),
+        "mlvae": (get_hierarchical_vae_trainer,
+                  {"beta": common["beta"], "vae_lr": 5e-4,
+                   "z_dim": common["z_dim"], "group_mode": "MLVAE",
+                   "seed": seed, **device}),
         "clear": (get_clearvae_trainer, {"ps": True, "seed": seed, **common}),
-        "clear-tc": (_not_ported("clear-tc", "11"), {}),
-        "clear-mim (L1OutUB)": (_not_ported("clear-mim (L1OutUB)", "12"), {}),
-        "clear-mim (CLUB-S)": (_not_ported("clear-mim (CLUB-S)", "12"), {}),
+        "clear-tc": (get_cleartcvae_trainer,
+                     {"la": 1, "factor_cls_lr": 1e-4, "seed": seed, **common}),
+        "clear-mim (L1OutUB)": (get_clearmimvae_trainer,
+                                {"mi_estimator": "L1OutUB", "la": 3,
+                                 "mi_estimator_lr": 2e-3, "seed": seed,
+                                 **common}),
+        "clear-mim (CLUB-S)": (get_clearmimvae_trainer,
+                               {"mi_estimator": "CLUBSample", "la": 3,
+                                "mi_estimator_lr": 2e-3, "seed": seed,
+                                **common}),
     }
 
 

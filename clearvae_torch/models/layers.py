@@ -13,7 +13,9 @@ public boundary, which stays NHWC as in the JAX package.
 - ``BatchNorm`` uses momentum 0.1 and eps 1e-5 and, like flax, updates its
   running variance with the *biased* batch variance E[x²]-E[x]²; torch's own
   BatchNorm would use the unbiased one. Train/eval is an explicit argument,
-  as in the JAX package.
+  as in the JAX package; ``update_stats=False`` normalizes a train-mode
+  batch by its own statistics and leaves the running ones as they were (the
+  JAX package's train-mode apply whose ``batch_stats`` update is dropped).
 """
 
 from __future__ import annotations
@@ -68,18 +70,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                update_stats: bool = True) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
             mean = x.mean(dims)
             var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        if train and update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(
                     self.momentum * var)
-        else:
+        elif not train:
             mean, var = self.running_mean, self.running_var
         mul = self.weight * torch.rsqrt(var + self.eps)
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
@@ -97,7 +101,8 @@ class ConvBNReluStack(nn.Module):
                                    for ci, co in zip(cins, channels))
         self.bns = nn.ModuleList(BatchNorm(co) for co in channels)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                update_stats: bool = True) -> torch.Tensor:
         for conv, bn in zip(self.convs, self.bns):
-            x = F.relu(bn(conv(x), train))
+            x = F.relu(bn(conv(x), train, update_stats))
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -11,6 +11,10 @@ The public layout is NHWC, as in the JAX package; the flatten is in
 (H, W, C) order, so flax's Dense kernels map by a transpose alone. The
 reparameterization draws z_c, then z_s, from an explicit generator, or takes
 injected ``eps`` = (eps_c, eps_s).
+
+With ``group_mode`` ("GVAE" or "MLVAE") and a ``label`` passed to
+``forward``, the content posterior is replaced by the per-class evidence of
+``ops/group.py`` and z_c is drawn group-wise (reference vae.py:81-102).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch.nn import functional as F
 
 from clearvae_torch.models.layers import (BatchNorm, ConvBNReluStack,
                                           conv_transpose2d, linear)
+from clearvae_torch.ops.group import accumulate_group_evidence, group_reparam
 
 
 class _Decoder(nn.Module):
@@ -66,11 +71,13 @@ class VAE(nn.Module):
     dec_output_paddings = (0, 1, 1)
 
     def __init__(self, total_z_dim: int, in_channel: int = 1,
-                 image_size: int = 28, fused_heads: bool = False,
+                 image_size: int = 28, group_mode: str | None = None,
+                 n_classes: int = 10, fused_heads: bool = False,
                  first_conv_pack: bool = False):
         super().__init__()
         self.total_z_dim, self.in_channel = total_z_dim, in_channel
         self.image_size = image_size
+        self.group_mode, self.n_classes = group_mode, n_classes
         self.fused_heads, self.first_conv_pack = fused_heads, first_conv_pack
         zd = self.z_dim
         self.encoder = ConvBNReluStack(in_channel, self.enc_channels,
@@ -93,10 +100,12 @@ class VAE(nn.Module):
     def z_dim(self) -> int:
         return self.total_z_dim // 2
 
-    def encode(self, x: torch.Tensor, train: bool = False):
+    def encode(self, x: torch.Tensor, train: bool = False,
+               update_stats: bool = True):
         """(mu_c, logvar_c, mu_s, logvar_s) of an NHWC batch — reference
-        vae.py:48-50."""
-        h = self.encoder(x.permute(0, 3, 1, 2), train)
+        vae.py:48-50. ``update_stats=False`` runs train mode without moving
+        the running statistics."""
+        h = self.encoder(x.permute(0, 3, 1, 2), train, update_stats)
         if self.fused_heads:
             return tuple(self.latent_heads(h).chunk(4, dim=-1))
         return (self.mu_c_head(h), self.logvar_c_head(h),
@@ -107,19 +116,32 @@ class VAE(nn.Module):
         return self.decoder(z, train)
 
     def forward(self, x: torch.Tensor, train: bool = True, eps=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                label: torch.Tensor | None = None):
         """(x_hat, latent_params, z) — the JAX package's ``explicit=True``
         output. Noise: ``eps`` = (eps_c, eps_s) if given, else two draws
-        from ``generator`` (z_c first, then z_s; reference vae.py:62-79)."""
+        from ``generator`` (z_c first, then z_s; reference vae.py:62-79).
+
+        With ``label`` (GVAE/MLVAE) latent_params carry the [n_classes, z]
+        group params under mu_c/logvar_c and a ``present`` mask."""
         mu_c, logvar_c, mu_s, logvar_s = self.encode(x, train)
         if eps is None:
             eps = [torch.randn(mu_c.shape, generator=generator,
                                device=mu_c.device, dtype=mu_c.dtype)
                    for _ in range(2)]
-        z_c = mu_c + eps[0] * torch.exp(0.5 * logvar_c)
+        if label is not None:
+            if self.group_mode is None:
+                raise ValueError("label given but group_mode is None")
+            mu_g, logvar_g, present = accumulate_group_evidence(
+                mu_c, logvar_c, label, self.n_classes, self.group_mode)
+            z_c = group_reparam(mu_g, logvar_g, label, eps[0])
+            latent_params = {"mu_c": mu_g, "logvar_c": logvar_g,
+                             "mu_s": mu_s, "logvar_s": logvar_s,
+                             "present": present}
+        else:
+            z_c = mu_c + eps[0] * torch.exp(0.5 * logvar_c)
+            latent_params = {"mu_c": mu_c, "logvar_c": logvar_c,
+                             "mu_s": mu_s, "logvar_s": logvar_s}
         z_s = mu_s + eps[1] * torch.exp(0.5 * logvar_s)
         z = torch.cat([z_c, z_s], dim=-1)
-        x_hat = self.decode(z, train)
-        latent_params = {"mu_c": mu_c, "logvar_c": logvar_c,
-                         "mu_s": mu_s, "logvar_s": logvar_s}
-        return x_hat, latent_params, z
+        return self.decode(z, train), latent_params, z

@@ -1,6 +1,13 @@
 """Trainer factories (counterpart of ``clearvae_tpu/train/factories.py``;
-reference code/src/utils/trainer_utils.py:87-116), with the JAX signature
-plus ``device``."""
+reference code/src/utils/trainer_utils.py:21-201), with the JAX signatures
+plus ``device`` (default ``cuda``). Each seeds its models' init with
+``seed`` and leaves the global generator's state as it was.
+
+The CLEAR, CLEAR-TC and CLEAR-MIM factories also take ``hyperparameter``,
+keys added to the trainer's dict; ``{"fused": True}`` routes the latent
+losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
+of c_loss for CLEAR-TC and CLEAR-MIM).
+"""
 
 from __future__ import annotations
 
@@ -8,10 +15,52 @@ import functools
 
 import torch
 
+from clearvae_torch.models.cnn import SimpleCNN
+from clearvae_torch.models.factor import FactorCls
+from clearvae_torch.models.mi_estimators import MI_ESTIMATORS
 from clearvae_torch.models.vae import VAE
-from clearvae_torch.train.trainers import CLEARVAETrainer
+from clearvae_torch.train.trainers import (CLEARVAETrainer, ClearMIMVAETrainer,
+                                           ClearTCVAETrainer,
+                                           HierarchicalVAETrainer,
+                                           SimpleCNNTrainer)
 
-MODELS = {"VAE": VAE}
+MODELS = {"VAE": VAE, "SimpleCNNClassifier": SimpleCNN}
+
+
+def _seeded(seed: int, build):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+def _adam(lr: float):
+    return functools.partial(torch.optim.Adam, lr=lr)
+
+
+def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
+                    in_channel: int = 1, verbose_period: int = 5,
+                    seed: int = 0, device=None, **_) -> SimpleCNNTrainer:
+    """reference trainer_utils.py:21-34 (Adam lr 1e-4)."""
+    cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
+                                                 in_channel=in_channel))
+    return SimpleCNNTrainer(cnn, _adam(1e-4), verbose_period, seed, device)
+
+
+def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
+                                 vae_arch: str = "VAE", in_channel: int = 1,
+                                 verbose_period: int = 5, seed: int = 0,
+                                 n_classes: int = 10,
+                                 vae_kwargs: dict | None = None,
+                                 mig_backend: str = "auto", device=None,
+                                 **_) -> HierarchicalVAETrainer:
+    """reference trainer_utils.py:59-84."""
+    vae = _seeded(seed, lambda: MODELS[vae_arch](
+        total_z_dim=z_dim, in_channel=in_channel, group_mode=group_mode,
+        n_classes=n_classes, **(vae_kwargs or {})))
+    return HierarchicalVAETrainer(
+        vae, _adam(vae_lr), hyperparameter={"beta": beta, "scale": 1, "loc": 0},
+        verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
+        device=device)
 
 
 def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
@@ -22,17 +71,59 @@ def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
                          mig_backend: str = "auto",
                          hyperparameter: dict | None = None,
                          device=None, **_) -> CLEARVAETrainer:
-    """CLEAR-VAE trainer with Adam(``vae_lr``), on ``device`` (default
-    ``cuda``). ``hyperparameter`` adds keys to the trainer's dict, e.g.
-    ``{"fused": True}``. The model's init is seeded with ``seed``; the
-    global generator's state is left as it was."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        vae = MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
-                               **(vae_kwargs or {}))
+    """reference trainer_utils.py:87-116, Adam(``vae_lr``)."""
+    vae = _seeded(seed, lambda: MODELS[vae_arch](
+        total_z_dim=z_dim, in_channel=in_channel, **(vae_kwargs or {})))
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "ps": ps,
           "loc": 0, "scale": 1, **(hyperparameter or {})}
     return CLEARVAETrainer(
-        vae, functools.partial(torch.optim.Adam, lr=vae_lr), sim_fn=sim_fn,
-        hyperparameter=hp, verbose_period=verbose_period, seed=seed,
-        mig_backend=mig_backend, device=device)
+        vae, _adam(vae_lr), sim_fn=sim_fn, hyperparameter=hp,
+        verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
+        device=device)
+
+
+def get_cleartcvae_trainer(beta, la, vae_lr, factor_cls_lr, z_dim, alpha,
+                           temperature, vae_arch: str = "VAE",
+                           in_channel: int = 1, verbose_period: int = 5,
+                           seed: int = 0, vae_kwargs: dict | None = None,
+                           mig_backend: str = "auto",
+                           hyperparameter: dict | None = None,
+                           device=None, **_) -> ClearTCVAETrainer:
+    """reference trainer_utils.py:119-157."""
+    vae, factor_cls = _seeded(seed, lambda: (
+        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
+                         **(vae_kwargs or {})),
+        FactorCls(z_dim=z_dim)))
+    hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "loc": 0,
+          "scale": 1, "lambda": la, **(hyperparameter or {})}
+    return ClearTCVAETrainer(
+        vae, factor_cls,
+        optimizers={"vae_optim": _adam(vae_lr),
+                    "factor_optim": _adam(factor_cls_lr)},
+        sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
+        seed=seed, mig_backend=mig_backend, device=device)
+
+
+def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
+                            mi_estimator_lr, z_dim, alpha, temperature,
+                            vae_arch: str = "VAE", in_channel: int = 1,
+                            verbose_period: int = 5, seed: int = 0,
+                            vae_kwargs: dict | None = None,
+                            mig_backend: str = "auto",
+                            hyperparameter: dict | None = None,
+                            device=None, **_) -> ClearMIMVAETrainer:
+    """reference trainer_utils.py:160-201 (estimator sized
+    x_dim=y_dim=z_dim//2, hidden=z_dim)."""
+    vae, est = _seeded(seed, lambda: (
+        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
+                         **(vae_kwargs or {})),
+        MI_ESTIMATORS[mi_estimator](x_dim=z_dim // 2, y_dim=z_dim // 2,
+                                    hidden_size=z_dim)))
+    hp = {"temperature": temperature, "beta": beta, "loc": 0, "scale": 1,
+          "alpha": alpha, "lambda": la, **(hyperparameter or {})}
+    return ClearMIMVAETrainer(
+        vae, est,
+        optimizers={"vae_optim": _adam(vae_lr),
+                    "mi_estimator_optim": _adam(mi_estimator_lr)},
+        sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
+        seed=seed, mig_backend=mig_backend, device=device)

@@ -1,10 +1,18 @@
 """Training and eval steps (counterpart of ``clearvae_tpu/train/steps.py``).
 
 A step factory closes over the model, the optimizer and the static
-configuration and returns a callable that updates them in place. PyTorch
-runs eagerly, so there is no jit and no scan: the trainer loops in Python
-over batches that stay on the device. Metrics come back as 0-d tensors on
-the device, so a step forces no host synchronisation.
+configuration and returns a callable ``step(x, label, noise)`` that updates
+them in place. PyTorch runs eagerly, so there is no jit and no scan: the
+trainer loops in Python over batches that stay on the device. Metrics come
+back as 0-d tensors on the device, so a step forces no host
+synchronisation.
+
+``noise`` holds every random draw of the step, made by the trainer (or
+injected by a test): the reparameterization's (eps_c, eps_s) for the CLEAR,
+hierarchical and eval steps; a pair of them for CLEAR-TC (its two
+forwards); a dict for CLEAR-MIM (``eps``, ``perm`` for CLUBSample's
+negatives, ``inner``, one [B, z] normal per estimator update). The CNN
+step draws nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import torch
 from torch.nn import functional as F
 
 from clearvae_torch.ops import losses as L
+from clearvae_torch.ops.group import grouped_kl
 from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
                                                    fused_contrastive_loss)
 from clearvae_torch.ops.schedules import logistic_anneal
@@ -102,6 +111,279 @@ def make_clear_vae_eval_step(model, contrastive_cfg):
     return eval_fn
 
 
+def _kl(mu, logvar):
+    return -0.5 * L.sample_level_reduction(1 + logvar - mu ** 2
+                                           - torch.exp(logvar))
+
+
+# ---------------------------------------------------------------------------
+# GVAE / ML-VAE (reference HierarchicalVAETrainer, trainer.py:291-412)
+# ---------------------------------------------------------------------------
+
+
+class HierarchicalStep:
+    """One GVAE/ML-VAE step (``make_hierarchical_step``): the content KL on
+    the group params, recon and the style KL scaled by B/m, m the number of
+    groups present (trainer.py:322-324,345-348)."""
+
+    def __init__(self, model, optimizer, anneal_cfg):
+        self.model, self.optimizer, self.anneal_cfg = model, optimizer, anneal_cfg
+        self.step = 0
+
+    def __call__(self, x, label, eps):
+        a = self.anneal_cfg
+        self.optimizer.zero_grad(set_to_none=True)
+        x_hat, lp, _ = self.model(x, train=True, eps=eps, label=label)
+        recon = L.sample_level_reduction((x_hat - x) ** 2)
+        kl_c = grouped_kl(lp["mu_c"], lp["logvar_c"], lp["present"])
+        adj = x.shape[0] / lp["present"].sum().clamp_min(1)
+        recon, kl_s = recon * adj, _kl(lp["mu_s"], lp["logvar_s"]) * adj
+        w = logistic_anneal(self.step, beta=a.beta, loc=a.loc, scale=a.scale)
+        loss = recon + w * kl_c + w * kl_s
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in (("loss", loss), ("recon", recon),
+                                           ("kl_c", kl_c), ("kl_s", kl_s))}
+
+
+def make_hierarchical_step(model, optimizer, anneal_cfg) -> HierarchicalStep:
+    return HierarchicalStep(model, optimizer, anneal_cfg)
+
+
+def make_hierarchical_eval_step(model, with_evidence_acc: bool = False):
+    """Eval-mode forward; with ``with_evidence_acc`` the content posterior
+    is the batch's group evidence and its KL the grouped one."""
+
+    @torch.no_grad()
+    def eval_fn(x, label, eps):
+        x_hat, lp, z = model(x, train=False, eps=eps,
+                             label=label if with_evidence_acc else None)
+        if with_evidence_acc:
+            kl_c = grouped_kl(lp["mu_c"], lp["logvar_c"], lp["present"])
+        else:
+            kl_c = _kl(lp["mu_c"], lp["logvar_c"])
+        zd = z.shape[-1] // 2
+        return {"recon": L.sample_level_reduction((x_hat - x) ** 2),
+                "kl_c": kl_c, "kl_s": _kl(lp["mu_s"], lp["logvar_s"]),
+                "z_c": z[:, :zd], "z_s": z[:, zd:]}
+
+    return eval_fn
+
+
+# ---------------------------------------------------------------------------
+# CLEAR-TC (reference ClearTCVAETrainer, trainer.py:590-709) and CLEAR-MIM
+# (reference ClearMIMVAETrainer, trainer.py:781-897): two players per step
+# ---------------------------------------------------------------------------
+
+
+def factor_shuffling(z: torch.Tensor, strategy: str = "permute_1") -> torch.Tensor:
+    """'Marginal' samples: z_s rolled up by one row (reference
+    trainer.py:573-587; its 'full' branch is dead code there)."""
+    if strategy != "permute_1":
+        raise ValueError("this strategy is not implemented yet")
+    zd = z.shape[1] // 2
+    return torch.cat([z[:, :zd], torch.roll(z[:, zd:], -1, 0)], 1)
+
+
+class _TwoPlayerStep:
+    """Phase 1 of CLEAR-TC and CLEAR-MIM: the VAE update with the second
+    player frozen. The VAE loss is recon + w·KL + α·c_loss + λ·mi_loss, and
+    its backward reaches the VAE's parameters only (the JAX step
+    differentiates with respect to them alone), so nothing reaches the
+    second player's optimizer. c_loss goes through ``_contrastive``: K2f
+    forward and K2b backward when fused."""
+
+    def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg, la):
+        self.model, self.optimizer = model, optimizer
+        self.anneal_cfg, self.cc, self.la = anneal_cfg, contrastive_cfg, la
+        self.vae_params = list(model.parameters())
+        self.step = 0
+
+    def _vae_update(self, x, label, eps, mi_loss_fn):
+        """(metrics, latent_params) of the update; ``mi_loss_fn(z)`` is the
+        second player's penalty on the sampled latents."""
+        cc, a = self.cc, self.anneal_cfg
+        self.optimizer.zero_grad(set_to_none=True)
+        x_hat, lp, z = self.model(x, train=True, eps=eps)
+        recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
+                                       lp["mu_s"], lp["logvar_s"])
+        c_loss = _contrastive(cc, lp["mu_c"], lp["logvar_c"], label, False)
+        mi_loss = mi_loss_fn(z)
+        w = logistic_anneal(self.step, beta=a.beta, loc=a.loc, scale=a.scale)
+        loss = (recon + w * kl_c + w * kl_s + cc.alpha * c_loss
+                + self.la * mi_loss)
+        loss.backward(inputs=self.vae_params)
+        self.optimizer.step()
+        metrics = {"loss": loss, "recon": recon, "kl_c": kl_c, "kl_s": kl_s,
+                   "c_loss": c_loss, "mi_loss": mi_loss}
+        return {k: v.detach() for k, v in metrics.items()}, lp
+
+
+class ClearTCStep(_TwoPlayerStep):
+    """One CLEAR-TC step (``make_clear_tc_step``); ``noise`` = (eps of the
+    VAE forward, eps of the classifier's forward). The penalty is
+    mean(relu(logit)), the reference's relu(log(d/(1−d))). Phase 2 runs a
+    no-grad train-mode forward with the UPDATED VAE (its BatchNorm running
+    statistics move, as in the JAX step) and takes one Adam step of the
+    factor classifier on joint vs shuffled latents, a mean BCE over 2B
+    logits."""
+
+    def __init__(self, model, factor_cls, optimizer, factor_optimizer,
+                 anneal_cfg, contrastive_cfg, tc_cfg):
+        super().__init__(model, optimizer, anneal_cfg, contrastive_cfg,
+                         tc_cfg.la)
+        self.factor_cls, self.factor_optimizer = factor_cls, factor_optimizer
+        self.shuffle_strategy = tc_cfg.shuffle_strategy
+
+    def __call__(self, x, label, noise):
+        eps_vae, eps_disc = noise
+        metrics, _ = self._vae_update(
+            x, label, eps_vae,
+            lambda z: F.relu(self.factor_cls(z, return_logits=True)).mean())
+        with torch.no_grad():
+            z2 = self.model(x, train=True, eps=eps_disc)[2]
+        self.factor_optimizer.zero_grad(set_to_none=True)
+        l_joint = self.factor_cls(z2, return_logits=True)
+        l_marg = self.factor_cls(factor_shuffling(z2, self.shuffle_strategy),
+                                 return_logits=True)
+        logits = torch.cat([l_joint, l_marg])
+        target = torch.cat([torch.ones_like(l_joint), torch.zeros_like(l_marg)])
+        d_loss = F.binary_cross_entropy_with_logits(logits, target)
+        d_loss.backward()
+        self.factor_optimizer.step()
+        self.step += 1
+        metrics["factor_d_loss"] = d_loss.detach()
+        return metrics
+
+
+def make_clear_tc_step(model, factor_cls, optimizer, factor_optimizer,
+                       anneal_cfg, contrastive_cfg, tc_cfg) -> ClearTCStep:
+    return ClearTCStep(model, factor_cls, optimizer, factor_optimizer,
+                       anneal_cfg, contrastive_cfg, tc_cfg)
+
+
+def make_clear_tc_eval_step(model, factor_cls, contrastive_cfg):
+    """Eval-mode forward; c_loss takes the plain path even when training is
+    fused, as in the JAX package."""
+
+    @torch.no_grad()
+    def eval_fn(x, label, eps):
+        x_hat, lp, z = model(x, train=False, eps=eps)
+        recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
+                                       lp["mu_s"], lp["logvar_s"])
+        c_loss = L.contrastive_loss(lp["mu_c"], lp["logvar_c"], label,
+                                    sim_fn=contrastive_cfg.sim_fn,
+                                    temperature=contrastive_cfg.temperature)
+        mi_loss = F.relu(factor_cls(z, return_logits=True)).mean()
+        zd = z.shape[-1] // 2
+        return {"recon": recon, "kl_c": kl_c, "kl_s": kl_s, "c_loss": c_loss,
+                "mi_loss": mi_loss, "z_c": z[:, :zd], "z_s": z[:, zd:]}
+
+    return eval_fn
+
+
+def _mi_estimate(estimator, x, y, perm):
+    return estimator(x, y, perm=perm) if estimator.uses_perm else estimator(x, y)
+
+
+class ClearMIMStep(_TwoPlayerStep):
+    """One CLEAR-MIM step (``make_clear_mim_step``); ``noise`` is a dict of
+    ``eps``, ``perm`` (CLUBSample's negatives, else None) and ``inner``
+    [inner_steps, B, z]. Phase 2 re-encodes x once in train mode with the
+    UPDATED VAE, leaving the running statistics as phase 1 left them (the
+    JAX step drops that update), or takes the phase-1 latents with
+    ``reuse_phase1_encode``; then ``inner_steps`` sequential Adam steps of
+    the estimator's learning loss, each on detached latents with fresh
+    noise. ``mi_learning_loss`` is the last inner loss."""
+
+    def __init__(self, model, mi_estimator, optimizer, mi_optimizer,
+                 anneal_cfg, contrastive_cfg, mim_cfg):
+        super().__init__(model, optimizer, anneal_cfg, contrastive_cfg,
+                         mim_cfg.la)
+        self.mi_estimator, self.mi_optimizer = mi_estimator, mi_optimizer
+        self.reuse_phase1_encode = mim_cfg.reuse_phase1_encode
+
+    def __call__(self, x, label, noise):
+        zd = self.model.z_dim
+        metrics, lp = self._vae_update(
+            x, label, noise["eps"],
+            lambda z: _mi_estimate(self.mi_estimator, z[:, :zd], z[:, zd:],
+                                   noise["perm"]))
+        with torch.no_grad():
+            if self.reuse_phase1_encode:
+                heads = (lp["mu_c"], lp["logvar_c"], lp["mu_s"], lp["logvar_s"])
+            else:
+                heads = self.model.encode(x, train=True, update_stats=False)
+            mu = torch.cat([heads[0], heads[2]], -1)
+            std = torch.exp(0.5 * torch.cat([heads[1], heads[3]], -1))
+        for eps in noise["inner"]:
+            z = mu + eps * std
+            self.mi_optimizer.zero_grad(set_to_none=True)
+            inner_loss = self.mi_estimator.learning_loss(z[:, :zd], z[:, zd:])
+            inner_loss.backward()
+            self.mi_optimizer.step()
+        self.step += 1
+        metrics["mi_learning_loss"] = inner_loss.detach()
+        return metrics
+
+
+def make_clear_mim_step(model, mi_estimator, optimizer, mi_optimizer,
+                        anneal_cfg, contrastive_cfg, mim_cfg) -> ClearMIMStep:
+    return ClearMIMStep(model, mi_estimator, optimizer, mi_optimizer,
+                        anneal_cfg, contrastive_cfg, mim_cfg)
+
+
+def make_clear_mim_eval_step(model, mi_estimator, contrastive_cfg):
+    """Eval-mode forward; ``noise`` is a dict of ``eps`` and ``perm``.
+    c_loss takes the plain path, as in the JAX package."""
+
+    @torch.no_grad()
+    def eval_fn(x, label, noise):
+        x_hat, lp, z = model(x, train=False, eps=noise["eps"])
+        recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
+                                       lp["mu_s"], lp["logvar_s"])
+        c_loss = L.contrastive_loss(lp["mu_c"], lp["logvar_c"], label,
+                                    sim_fn=contrastive_cfg.sim_fn,
+                                    temperature=contrastive_cfg.temperature)
+        zd = z.shape[-1] // 2
+        mi_loss = _mi_estimate(mi_estimator, z[:, :zd], z[:, zd:],
+                               noise["perm"])
+        return {"recon": recon, "kl_c": kl_c, "kl_s": kl_s, "c_loss": c_loss,
+                "mi_loss": mi_loss, "z_c": z[:, :zd], "z_s": z[:, zd:]}
+
+    return eval_fn
+
+
+# ---------------------------------------------------------------------------
+# CNN classifier (reference SimpleCNNTrainer, trainer.py:168-232)
+# ---------------------------------------------------------------------------
+
+
+def make_cnn_step(model, optimizer):
+    """``step(x, label, noise)``: one Adam step of the cross-entropy, BN in
+    train mode; ``noise`` is unused (None)."""
+
+    def step_fn(x, label, noise=None):
+        optimizer.zero_grad(set_to_none=True)
+        loss = _ce(model(x, train=True), label)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step_fn
+
+
+def make_cnn_logits_fn(model):
+    """``logits(x)`` in eval mode."""
+
+    @torch.no_grad()
+    def logits_fn(x):
+        return model(x, train=False)
+
+    return logits_fn
+
+
 # ---------------------------------------------------------------------------
 # Epoch runners: an eager loop over batches gathered by index on the device
 # (the JAX package's scanned epoch programs, steps.py:630-706,823-918)
@@ -109,13 +391,13 @@ def make_clear_vae_eval_step(model, contrastive_cfg):
 
 
 def make_epoch_fn(step):
-    """``epoch_fn(data, labels, batch_idx, draw_eps)``: one ``step`` per row
-    of ``batch_idx`` [n_batches, B] on the gathered batch; returns the
-    per-step outputs. A train step or an eval step (``make_eval_epoch_fn``
-    of the JAX package)."""
+    """``epoch_fn(data, labels, batch_idx, draw_noise)``: one ``step`` per
+    row of ``batch_idx`` [n_batches, B] on the gathered batch, with the
+    noise ``draw_noise(B)`` makes; returns the per-step outputs. A train
+    step or an eval step (``make_eval_epoch_fn`` of the JAX package)."""
 
-    def epoch_fn(data, labels, batch_idx, draw_eps):
-        return [step(data[idx], labels[idx], draw_eps(idx.numel()))
+    def epoch_fn(data, labels, batch_idx, draw_noise):
+        return [step(data[idx], labels[idx], draw_noise(idx.numel()))
                 for idx in batch_idx]
 
     return epoch_fn
@@ -129,9 +411,9 @@ def make_styled_epoch_fn(step, styler):
     the raw images stay resident; the pixels equal the materialized
     path's. With an eval step it is ``make_styled_eval_epoch_fn``."""
 
-    def epoch_fn(raw, labels, style_idx, draws, batch_idx, draw_eps):
+    def epoch_fn(raw, labels, style_idx, draws, batch_idx, draw_noise):
         return [step(styler(raw[idx], style_idx[idx], draws[idx])[..., None],
-                     labels[idx], draw_eps(idx.numel()))
+                     labels[idx], draw_noise(idx.numel()))
                 for idx in batch_idx]
 
     return epoch_fn

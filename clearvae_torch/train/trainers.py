@@ -6,9 +6,12 @@ by index, in the JAX package's order: epoch e is shuffled by
 ``np.random.RandomState(seed + e)`` and its ragged tail dropped
 (trainers.py:199-202). With ``style_on_device`` only the raw images stay
 resident and each batch is styled on the device inside the loop (K3 for the
-deterministic styles). Reparameterization noise comes from one
-``torch.Generator`` seeded from ``seed``. Checkpoints, the metric logger,
-multi-epoch dispatch and meshes are not ported yet.
+deterministic styles). Every random draw of a step (reparameterization
+noise, CLUBSample's permutation, the MIM estimator's inner noise) comes from
+one ``torch.Generator`` seeded from ``seed``. ``fit`` returns the loss
+histories where the JAX package's does (CLEAR-TC: ``factor_d_losses``;
+CLEAR-MIM: ``(mi_losses, mi_learning_losses)``). Checkpoints, the metric
+logger, multi-epoch dispatch and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from clearvae_torch import config as C
 from clearvae_torch import resolve_device
+from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
 from clearvae_torch.train import steps as S
@@ -42,6 +46,14 @@ class TrainerCore:
         return torch.randn((2, n, self.model.z_dim), generator=self.generator,
                            device=self.device).unbind(0)
 
+    def _train_noise(self, n: int):
+        """The draws one train step of a batch of n takes."""
+        return self._draw_eps(n)
+
+    def _eval_noise(self, n: int):
+        """The draws one eval step of a batch of n takes."""
+        return self._draw_eps(n)
+
     def _device_data(self, ds):
         """(x [N, H, W, C] float32 in [0, 1], labels int64), on the device."""
         if hasattr(ds, "materialize"):  # StyledDataset: styled on the device
@@ -57,11 +69,11 @@ class TrainerCore:
         return torch.as_tensor(np.asarray(ds.labels), dtype=torch.int64,
                                device=self.device)
 
-    def _epoch_runner(self, ds, step, style_on_device: bool):
+    def _epoch_runner(self, ds, step, style_on_device: bool, draw_noise):
         """``run(batch_idx [n, B]) -> [n per-batch outputs]`` of ``step`` over
-        ``ds`` on the device: gathered from the materialized dataset, or,
-        with ``style_on_device`` (StyledDataset only), from the raw images
-        and styled per batch."""
+        ``ds`` on the device, each batch with the draws of ``draw_noise``:
+        gathered from the materialized dataset, or, with ``style_on_device``
+        (StyledDataset only), from the raw images and styled per batch."""
         labels = self._labels(ds)
         if style_on_device:
             if not hasattr(ds, "device_arrays"):
@@ -70,10 +82,10 @@ class TrainerCore:
                                  f"{type(ds).__name__}")
             raw, sidx, draws = ds.device_arrays(self.device)
             fn = S.make_styled_epoch_fn(step, ds.style)
-            return lambda bi: fn(raw, labels, sidx, draws, bi, self._draw_eps)
+            return lambda bi: fn(raw, labels, sidx, draws, bi, draw_noise)
         data, _ = self._device_data(ds)
         fn = S.make_epoch_fn(step)
-        return lambda bi: fn(data, labels, bi, self._draw_eps)
+        return lambda bi: fn(data, labels, bi, draw_noise)
 
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
             start_epoch: int = 0, style_on_device: bool = False):
@@ -84,8 +96,11 @@ class TrainerCore:
         ``style_on_device`` (StyledDataset only) keeps only the raw images
         on the device and styles each batch there, keyed by (dataset seed,
         absolute sample id): the same pixels as the materialized path.
-        In-fit validation then styles its batches the same way."""
-        run = self._epoch_runner(train_ds, self.train_step, style_on_device)
+        In-fit validation then styles its batches the same way. Returns
+        ``_fit_result()``: None here, the loss histories in CLEAR-TC and
+        CLEAR-MIM."""
+        run = self._epoch_runner(train_ds, self.train_step, style_on_device,
+                                 self._train_noise)
         n = len(train_ds)
         batch_size = min(batch_size, n)  # tiny split: shrink, don't drop all
         n_batches = n // batch_size
@@ -96,6 +111,7 @@ class TrainerCore:
                 device=self.device))
             self.history.append({k: torch.stack([m[k] for m in ms]).cpu().numpy()
                                  for k in ms[0]})
+            self._post_train_epoch(self.history[-1])
             if epoch % self.verbose_period == 0:
                 last = {k: round(float(v[-1]), 3)
                         for k, v in self.history[-1].items()}
@@ -105,6 +121,13 @@ class TrainerCore:
                         valid_ds, batch_size,
                         style_on_device=(style_on_device
                                          and hasattr(valid_ds, "device_arrays")))
+        return self._fit_result()
+
+    def _post_train_epoch(self, history: dict):
+        """Called with each epoch's {metric: [n_batches]} arrays."""
+
+    def _fit_result(self):
+        return None
 
     def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
         raise NotImplementedError
@@ -131,7 +154,8 @@ class VAETrainerBase(TrainerCore):
         ragged tail by one direct call; MSE is the mean of the per-batch
         means. ``style_on_device`` styles each batch on the device from the
         raw images, as ``fit`` does."""
-        run = self._epoch_runner(ds, self.eval_step, style_on_device)
+        run = self._epoch_runner(ds, self.eval_step, style_on_device,
+                                 self._eval_noise)
         n = len(ds)
         bs = min(batch_size, n)
         nb = n // bs
@@ -149,6 +173,18 @@ class VAETrainerBase(TrainerCore):
         return mig, self.last_eval_totals["recon"]
 
 
+def _anneal_cfg(hp: dict) -> C.AnnealConfig:
+    return C.AnnealConfig(beta=hp["beta"], loc=hp.get("loc", 0.0),
+                          scale=hp.get("scale", 1.0))
+
+
+def _adversarial_contrastive_cfg(hp: dict, sim_fn: str) -> C.ContrastiveConfig:
+    """The TC/MIM trainers' c_loss config: the JAX package's (sim_fn, α, τ;
+    unfused), with ``hp["fused"]`` choosing the K2f/K2b route."""
+    return C.ContrastiveConfig(alpha=hp["alpha"], temperature=hp["temperature"],
+                               sim_fn=sim_fn, fused=hp.get("fused", False))
+
+
 class CLEARVAETrainer(VAETrainerBase):
     """The core method (reference CLEARVAETrainer, trainer.py:415-570).
 
@@ -164,9 +200,7 @@ class CLEARVAETrainer(VAETrainerBase):
         super().__init__(model, verbose_period, seed, mig_backend, device)
         self.optimizer = optimizer(self.model.parameters())
         self.hp = hyperparameter
-        anneal = C.AnnealConfig(beta=hyperparameter["beta"],
-                                loc=hyperparameter.get("loc", 0.0),
-                                scale=hyperparameter.get("scale", 1.0))
+        anneal = _anneal_cfg(hyperparameter)
         contr = C.ContrastiveConfig(
             alpha=hyperparameter["alpha"],
             temperature=hyperparameter["temperature"],
@@ -177,6 +211,165 @@ class CLEARVAETrainer(VAETrainerBase):
         self.train_step = S.make_clear_vae_step(self.model, self.optimizer,
                                                 anneal, contr)
         self.eval_step = S.make_clear_vae_eval_step(self.model, contr)
+
+
+class HierarchicalVAETrainer(VAETrainerBase):
+    """GVAE / ML-VAE (reference HierarchicalVAETrainer, trainer.py:291-412).
+    ``evaluate(with_evidence_acc=True)`` evaluates on the batch's group
+    evidence."""
+
+    def __init__(self, model, optimizer, hyperparameter: dict,
+                 verbose_period: int = 5, seed: int = 0,
+                 mig_backend: str = "auto", device=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device)
+        self.optimizer = optimizer(self.model.parameters())
+        self.train_step = S.make_hierarchical_step(
+            self.model, self.optimizer, _anneal_cfg(hyperparameter))
+        self._eval_steps = {flag: S.make_hierarchical_eval_step(self.model, flag)
+                            for flag in (False, True)}
+        self.eval_step = self._eval_steps[False]
+
+    def evaluate(self, ds, batch_size: int = 128,
+                 with_evidence_acc: bool | None = None,
+                 style_on_device: bool = False):
+        """(reference evaluate(..., with_evidence_acc), trainer.py:366-412).
+        ``None`` keeps the trainer's eval step, plain by default."""
+        prev = self.eval_step
+        if with_evidence_acc is not None:
+            self.eval_step = self._eval_steps[with_evidence_acc]
+        try:
+            return super().evaluate(ds, batch_size,
+                                    style_on_device=style_on_device)
+        finally:
+            self.eval_step = prev
+
+
+class ClearTCVAETrainer(VAETrainerBase):
+    """CLEAR-TC (reference ClearTCVAETrainer, trainer.py:590-778).
+    ``optimizers`` = {"vae_optim", "factor_optim"}, each building an
+    optimizer from its module's parameters. ``fit`` returns
+    ``factor_d_losses``, one per train step since construction."""
+
+    def __init__(self, model, factor_cls: FactorCls, optimizers: dict,
+                 sim_fn: str, hyperparameter: dict, verbose_period: int = 5,
+                 seed: int = 0, mig_backend: str = "auto", device=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device)
+        self.factor_cls = factor_cls.to(self.device)
+        self.optimizer = optimizers["vae_optim"](self.model.parameters())
+        self.factor_optimizer = optimizers["factor_optim"](
+            self.factor_cls.parameters())
+        self.hp = hyperparameter
+        contr = _adversarial_contrastive_cfg(hyperparameter, sim_fn)
+        self.contr_cfg = contr
+        self.train_step = S.make_clear_tc_step(
+            self.model, self.factor_cls, self.optimizer, self.factor_optimizer,
+            _anneal_cfg(hyperparameter), contr,
+            C.TCConfig(la=hyperparameter["lambda"]))
+        self.eval_step = S.make_clear_tc_eval_step(self.model, self.factor_cls,
+                                                   contr)
+        self.factor_d_losses: list = []
+
+    def _train_noise(self, n: int):
+        return self._draw_eps(n), self._draw_eps(n)
+
+    def _post_train_epoch(self, history: dict):
+        self.factor_d_losses.extend(history["factor_d_loss"].tolist())
+
+    def _fit_result(self):
+        return self.factor_d_losses
+
+
+class ClearMIMVAETrainer(VAETrainerBase):
+    """CLEAR-MIM (reference ClearMIMVAETrainer, trainer.py:781-965).
+    ``optimizers`` = {"vae_optim", "mi_estimator_optim"}. ``fit`` returns
+    ``(mi_losses, mi_learning_losses)``."""
+
+    def __init__(self, model, mi_estimator, optimizers: dict, sim_fn: str,
+                 hyperparameter: dict, verbose_period: int = 5, seed: int = 0,
+                 mig_backend: str = "auto", device=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device)
+        self.mi_estimator = mi_estimator.to(self.device)
+        self.optimizer = optimizers["vae_optim"](self.model.parameters())
+        self.mi_optimizer = optimizers["mi_estimator_optim"](
+            self.mi_estimator.parameters())
+        self.hp = hyperparameter
+        contr = _adversarial_contrastive_cfg(hyperparameter, sim_fn)
+        self.contr_cfg = contr
+        self.mim_cfg = C.MIMConfig(
+            la=hyperparameter["lambda"],
+            reuse_phase1_encode=bool(
+                hyperparameter.get("reuse_phase1_encode", False)))
+        self.train_step = S.make_clear_mim_step(
+            self.model, self.mi_estimator, self.optimizer, self.mi_optimizer,
+            _anneal_cfg(hyperparameter), contr, self.mim_cfg)
+        self.eval_step = S.make_clear_mim_eval_step(self.model,
+                                                    self.mi_estimator, contr)
+        self.mi_losses: list = []
+        self.mi_learning_losses: list = []
+
+    def _draw_perm(self, n: int):
+        if not self.mi_estimator.uses_perm:
+            return None
+        return torch.randperm(n, generator=self.generator, device=self.device)
+
+    def _train_noise(self, n: int):
+        inner = torch.randn((self.mim_cfg.inner_steps, n, self.model.total_z_dim),
+                            generator=self.generator, device=self.device)
+        return {"eps": self._draw_eps(n), "perm": self._draw_perm(n),
+                "inner": inner}
+
+    def _eval_noise(self, n: int):
+        return {"eps": self._draw_eps(n), "perm": self._draw_perm(n)}
+
+    def _post_train_epoch(self, history: dict):
+        self.mi_losses.extend(history["mi_loss"].tolist())
+        self.mi_learning_losses.extend(history["mi_learning_loss"].tolist())
+
+    def _fit_result(self):
+        return self.mi_losses, self.mi_learning_losses
+
+
+class SimpleCNNTrainer(TrainerCore):
+    """Plain cross-entropy classifier baseline (reference SimpleCNNTrainer,
+    trainer.py:168-232). ``evaluate(style_on_device=True)`` styles each
+    chunk on the device and classifies it in one pass (the probe's fused
+    style→encode pattern)."""
+
+    def __init__(self, model, optimizer, verbose_period: int = 5,
+                 seed: int = 0, device=None):
+        super().__init__(model, verbose_period, seed, device)
+        self.optimizer = optimizer(self.model.parameters())
+        self.train_step = S.make_cnn_step(self.model, self.optimizer)
+        self.logits_fn = S.make_cnn_logits_fn(self.model)
+
+    def _train_noise(self, n: int):
+        return None
+
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+        (aupr, auroc), acc = self.evaluate(valid_ds, batch_size,
+                                           style_on_device=style_on_device)
+        print("val_aupr:", aupr, "val_auroc:", auroc, "val_acc:",
+              round(acc, 3))
+
+    def evaluate(self, ds, batch_size: int = 128,
+                 style_on_device: bool = False):
+        """((per-class AUPR, per-class AUROC), accuracy) — reference
+        trainer.py:215-232."""
+        y = self._labels(ds)
+        if style_on_device:
+            if not hasattr(ds, "chunked_apply"):
+                raise ValueError(
+                    "style_on_device requires a StyledDataset carrying raw "
+                    f"images + style indices; got {type(ds).__name__}")
+            logits = ds.chunked_apply(
+                lambda raw, sidx, draws: self.logits_fn(
+                    ds.style(raw, sidx, draws)[..., None]),
+                self.device, batch_size)
+        else:
+            data, _ = self._device_data(ds)
+            logits = torch.cat([self.logits_fn(data[s:s + batch_size])
+                                for s in range(0, len(ds), batch_size)])
+        return MT.auc(logits, y), MT.accuracy(logits, y)
 
 
 class DownstreamMLPTrainer:

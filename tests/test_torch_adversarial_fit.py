@@ -1,0 +1,167 @@
+"""The slice as a whole: the port's CLEAR-TC and CLEAR-MIM (CLUB-S) trainers,
+fused c_loss, against the JAX package's trainers for 2 epochs and an
+evaluation, from bridged weights of both players and with the draws of the
+JAX trainers' key chains: one split for init, one per epoch (split per
+batch, each batch key split again by the step), one for the full eval
+batches and one for the ragged eval tail.
+
+Bars, from the drift measured on this run. The first two steps' total
+losses agree within 1.3e-5; from the third step on they differ by up
+to 1.9e-4 (MIM; TC 1.2e-4), nearly all of it α·c_loss, without growing over
+the 8 steps, and the small terms by up to 4.3e-3 (MIM's kl_c and
+mi_learning_loss; its estimator takes five Adam steps at 2e-3 a step). The
+cause is float noise: torch's and XLA's convolutions give every gradient a
+different last bit, and Adam's normalized update turns that noise into
+moves of up to lr where a gradient is small. The port's unfused route
+drifts the same, and one step of each trainer is held at rtol 1e-4 by
+tests/test_torch_{tc,mim}.py. So: the per-step total loss and the epoch
+means of loss, recon and c_loss at rtol 3e-4; the other terms at 1e-2,
+mi_loss (a bound near 0) at 1e-3 absolute in the epoch means and 5e-3 per
+step (2.6e-3 measured); the eval totals at rtol 3e-3 or 2e-3 absolute (the
+eval KL terms are 0.04–0.6 and read the BatchNorm running means, which
+carry the drift: 1.4e-3 measured)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clearvae_tpu.data.common import ArrayDataset
+from clearvae_tpu.train import factories as JF
+from clearvae_torch.bridge import (factor_params_from_flax, mi_params_from_flax,
+                                   params_from_flax)
+from clearvae_torch.data.mnist import synthetic_mnist
+from clearvae_torch.data.styled import make_styled_mnist
+from clearvae_torch.train import factories as TF
+
+N_TRAIN, N_EVAL, BS, SEED = 128, 40, 32, 0
+COMMON = dict(beta=1 / 8, vae_lr=5e-4, z_dim=16, alpha=100.0,
+              temperature=0.1, seed=SEED, mig_backend="numpy")
+KINDS = {
+    "tc": ("get_cleartcvae_trainer", dict(la=1, factor_cls_lr=1e-4)),
+    "mim": ("get_clearmimvae_trainer", dict(mi_estimator="CLUBSample", la=3,
+                                            mi_estimator_lr=2e-3)),
+}
+
+
+def _np_tree(t):
+    return jax.tree.map(np.asarray, t)
+
+
+def _eps(jm, variables, key, n):
+    """The (eps_c, eps_s) that VAE.__call__ draws from ``key``."""
+    zeros = jnp.zeros((n, jm.z_dim))
+
+    def draw(mdl):
+        return mdl.sample(zeros, zeros), mdl.sample(zeros, zeros)
+
+    return [torch.as_tensor(np.array(e)) for e in
+            jm.apply(variables, method=draw, rngs={"reparam": key})]
+
+
+def _perm(est, params, key, n):
+    """The permutation CLUBSample.__call__ draws from ``key``."""
+    return torch.as_tensor(np.array(est.apply(
+        {"params": params},
+        method=lambda m: jax.random.permutation(m.make_rng("shuffle"), n),
+        rngs={"shuffle": key})))
+
+
+def _draws(kind, jt, variables, key, n, train):
+    """One step's draws from its JAX key, in the port's noise layout."""
+    if kind == "tc":
+        if not train:
+            return _eps(jt.model, variables, key, n)
+        return tuple(_eps(jt.model, variables, k, n)
+                     for k in jax.random.split(key))
+    params = jt.state.aux_params
+    if not train:
+        return {"eps": _eps(jt.model, variables, key, n),
+                "perm": _perm(jt.mi_estimator, params, key, n)}
+    k_vae, k_inner = jax.random.split(key)
+    inner = torch.stack([torch.as_tensor(np.array(jax.random.normal(k, (n, 16))))
+                         for k in jax.random.split(k_inner, 5)])
+    return {"eps": _eps(jt.model, variables, k_vae, n),
+            "perm": _perm(jt.mi_estimator, params, jax.random.fold_in(k_vae, 1),
+                          n),
+            "inner": inner}
+
+
+def _overlay(kind):
+    """Both trainers' fit and evaluate: (port trainer, its fit result and
+    (mig, mse)), the same for JAX, and the JAX per-epoch histories."""
+    imgs, labels = synthetic_mnist(N_TRAIN + N_EVAL, seed=SEED)
+    styled = make_styled_mnist(imgs, labels, seed=SEED).materialize(
+        "cpu").numpy()[..., None]
+    train = ArrayDataset(styled[:N_TRAIN], labels[:N_TRAIN],
+                         np.zeros(N_TRAIN, np.int32))
+    valid = ArrayDataset(styled[N_TRAIN:], labels[N_TRAIN:],
+                         np.zeros(N_EVAL, np.int32))
+    name, kw = KINDS[kind]
+    jt = getattr(JF, name)(**COMMON, **kw)
+    jt.state = jt._init_state()
+    tt = getattr(TF, name)(**COMMON, **kw, hyperparameter={"fused": True},
+                           device="cpu")
+    assert tt.contr_cfg.fused
+    tt.model.load_state_dict(params_from_flax(_np_tree(jt.state.params),
+                                              _np_tree(jt.state.batch_stats)))
+    aux = _np_tree(jt.state.aux_params)
+    if kind == "tc":
+        tt.factor_cls.load_state_dict(factor_params_from_flax(aux))
+    else:
+        tt.mi_estimator.load_state_dict(mi_params_from_flax(aux))
+
+    variables = {"params": jt.state.params,
+                 "batch_stats": jt.state.batch_stats}
+    rng = jax.random.split(jax.random.key(SEED))[0]
+    train_q, eval_q = [], []
+    for _ in range(2):
+        rng, k = jax.random.split(rng)
+        train_q += [_draws(kind, jt, variables, kb, BS, True)
+                    for kb in jax.random.split(k, N_TRAIN // BS)]
+    rng, k = jax.random.split(rng)
+    eval_q += [_draws(kind, jt, variables, kb, BS, False)
+               for kb in jax.random.split(k, N_EVAL // BS)]
+    rng, k = jax.random.split(rng)
+    eval_q.append(_draws(kind, jt, variables, k, N_EVAL % BS, False))
+    tt._train_noise = lambda n: train_q.pop(0)
+    tt._eval_noise = lambda n: eval_q.pop(0)
+
+    jhist = []
+    record = jt._post_train_epoch
+    jt._post_train_epoch = lambda ms: (jhist.append(ms), record(ms))
+    jresult = jt.fit(2, train, batch_size=BS)
+    jeval = jt.evaluate(valid, batch_size=BS)
+    result = tt.fit(2, train, batch_size=BS)
+    teval = tt.evaluate(valid, batch_size=BS)
+    assert not train_q and not eval_q
+    return (tt, result, teval), (jt, jresult, jeval), jhist
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_fit_and_evaluate_overlay_jax(kind):
+    (tt, result, (mig, mse)), (jt, jresult, (jmig, jmse)), jhist = \
+        _overlay(kind)
+
+    for e, jh in enumerate(jhist):
+        np.testing.assert_allclose(tt.history[e]["loss"],
+                                   np.asarray(jh["loss"]), rtol=3e-4,
+                                   err_msg=f"epoch {e} per-step loss")
+        for k, v in jh.items():
+            rtol = 3e-4 if k in ("loss", "recon", "c_loss") else 1e-2
+            atol = 1e-3 if k == "mi_loss" else 0.0
+            np.testing.assert_allclose(tt.history[e][k].mean(),
+                                       np.asarray(v).mean(), rtol=rtol,
+                                       atol=atol, err_msg=f"epoch {e} {k}")
+    if kind == "tc":   # factor_d_losses (measured 5.4e-5)
+        np.testing.assert_allclose(result, jresult, rtol=1e-3)
+    else:              # mi_losses (2.6e-3 absolute), mi_learning_losses
+        np.testing.assert_allclose(result[0], jresult[0], atol=5e-3)
+        np.testing.assert_allclose(result[1], jresult[1], rtol=1e-2)
+    np.testing.assert_allclose(mse, jmse, rtol=3e-3)
+    for k, v in jt.last_eval_totals.items():
+        np.testing.assert_allclose(tt.last_eval_totals[k], v, rtol=3e-3,
+                                   atol=2e-3, err_msg=k)
+    # MIG counts kNN neighbours: slightly different latents may flip a few
+    assert np.isfinite(mig) and abs(mig - jmig) < 0.05

@@ -158,14 +158,49 @@ def test_cli_writes_the_reference_schema_with_and_without_styling_on_device(
 
 
 def test_unported_zoo_entries_name_their_roadmap_item():
-    zoo = RUN.model_zoo({"beta": 1 / 8}, seed=0)
-    assert list(zoo) == ["baseline", "gvae", "mlvae", "clear", "clear-tc",
+    """Every zoo entry is ported: the port's zoo carries the JAX zoo's
+    names, factories and hyperparameters, plus the device, and each entry
+    builds its trainer on the CPU."""
+    from clearvae_tpu.experiments import styledmnist_downstream as JRUN
+    from clearvae_torch.train import trainers as TT
+
+    kw = {"beta": 1 / 8, "vae_lr": 5e-4, "z_dim": 16, "alpha": 100.0,
+          "temperature": 0.1}
+    jzoo = JRUN.model_zoo(kw, seed=3)
+    zoo = RUN.model_zoo({**kw, "device": "cpu"}, seed=3)
+    assert list(zoo) == list(jzoo) == [
+        "baseline", "gvae", "mlvae", "clear", "clear-tc",
+        "clear-mim (L1OutUB)", "clear-mim (CLUB-S)"]
+    kinds = {"baseline": TT.SimpleCNNTrainer, "gvae": TT.HierarchicalVAETrainer,
+             "mlvae": TT.HierarchicalVAETrainer, "clear": TT.CLEARVAETrainer,
+             "clear-tc": TT.ClearTCVAETrainer,
+             "clear-mim (L1OutUB)": TT.ClearMIMVAETrainer,
+             "clear-mim (CLUB-S)": TT.ClearMIMVAETrainer}
+    for name, (factory, params) in zoo.items():
+        jfactory, jparams = jzoo[name]
+        assert factory.__name__ == jfactory.__name__, name
+        assert params == {**jparams, "device": "cpu"}, name
+        trainer = factory(**params)
+        assert type(trainer) is kinds[name], name
+        assert trainer.device == torch.device("cpu")
+    assert type(zoo["clear-mim (CLUB-S)"][0](
+        **zoo["clear-mim (CLUB-S)"][1]).mi_estimator).__name__ == "CLUBSample"
+
+
+def test_cli_runs_the_whole_zoo_in_the_reference_schema(tmp_path):
+    """The seven-entry CPU smoke of the runner (no --models)."""
+    args = [a for a in ARGS if a not in ("--models", "clear")]
+    RUN.main(args + ["--out", str(tmp_path)])
+    with open(tmp_path / "styledmnist-k1-7.json") as f:
+        res = json.load(f)
+    assert list(res) == ["baseline", "gvae", "mlvae", "clear", "clear-tc",
                          "clear-mim (L1OutUB)", "clear-mim (CLUB-S)"]
-    for name, item in (("baseline", "9"), ("gvae", "10"), ("clear-tc", "11"),
-                       ("clear-mim (CLUB-S)", "12")):
-        factory, params = zoo[name]
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            factory(**params)
+    for name, r in res.items():
+        assert set(r) == {"acc", "pr", "roc"} and 0.0 <= r["acc"] <= 1.0, name
+        for part in ("pr", "roc"):
+            assert set(r[part]) == {"overall", "stratified"}
+            assert sorted(r[part]["stratified"]) == [str(c) for c in range(10)]
+            assert np.isfinite(r[part]["overall"])
 
 
 def test_probe_uncached_path_matches_cached():

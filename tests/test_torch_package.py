@@ -20,6 +20,8 @@ import clearvae_torch.ops.prng, clearvae_torch.ops.kernels.style
 import clearvae_torch.models.mlp, clearvae_torch.train.trainers
 import clearvae_torch.experiments.common
 import clearvae_torch.experiments.styledmnist_downstream
+import clearvae_torch.models.cnn, clearvae_torch.models.factor
+import clearvae_torch.models.mi_estimators, clearvae_torch.ops.group
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
@@ -37,10 +39,19 @@ def test_entry_point_needs_cuda_or_an_explicit_cpu(monkeypatch):
     import torch
 
     from clearvae_torch import resolve_device
-    from clearvae_torch.train.factories import get_clearvae_trainer
+    from clearvae_torch.train import factories as F
 
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        get_clearvae_trainer(beta=1 / 8, ps=True, vae_lr=5e-4, z_dim=16,
-                             alpha=100, temperature=0.1)
+    common = dict(beta=1 / 8, vae_lr=5e-4, z_dim=16, alpha=100,
+                  temperature=0.1)
+    for factory, kw in (
+            (F.get_clearvae_trainer, dict(common, ps=True)),
+            (F.get_cleartcvae_trainer, dict(common, la=1, factor_cls_lr=1e-4)),
+            (F.get_clearmimvae_trainer, dict(common, mi_estimator="CLUBSample",
+                                             la=3, mi_estimator_lr=2e-3)),
+            (F.get_hierarchical_vae_trainer, dict(beta=1 / 8, vae_lr=5e-4,
+                                                  z_dim=16, group_mode="GVAE")),
+            (F.get_cnn_trainer, dict(n_class=10))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            factory(**kw)
