@@ -9,17 +9,24 @@ Phases, each fatal on failure:
                 sm_90a (one nvcc per source, all started together) and print
                 the build time and ptxas report.
 2. kernels    — hold each CUDA kernel against its plain PyTorch twin on the
-                card. The fused losses K1/K2f/K2b: values and autograd
-                gradients at (B, z) = (128, 8), (100, 7) and (2048, 8), ps on
-                and off, timed at B = 128 and 2048. The styler K3: all seven
-                codes × severities 1–5 at B = 128, 100 and 512 (atol 1e-3 on
-                the 0..255 scale), timed at B = 128 and 512.
+                card. The fused losses K1 (forward and backward kernel),
+                K2f, K2b: values and autograd gradients at every (B, z) of
+                SHAPES (each of K1's template instances, its column-tile
+                ring, singleton-label rows), ps on and off; K1's backward
+                with a non-unit cotangent; two K1 calls bit-identical; K1
+                one launch a call each way (profiler). Timed at B = 128 and
+                2048 with CUDA events and, per call, the profiler's device
+                time. The
+                styler K3: all seven codes × severities 1–5 at B = 128, 100
+                and 512 (atol 1e-3 on the 0..255 scale), timed at B = 128
+                and 512.
 3. main       — the flagship configuration through the user entry points:
                 ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
                 β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
                 epochs on synthetic Styled-MNIST of the six styles, styled
                 once by ``materialize`` (K3) → ``evaluate``. The launch
-                counters are zeroed just before and read just after; one
+                counters are zeroed just before and read just after (K1's
+                forward and backward kernels once per train step); one
                 step is also checked fused against unfused on the card. Then
                 a train step is timed and profiled: wall and device-busy ms
                 per step, idle share, kernels per step.
@@ -69,16 +76,29 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and fp32 on
-# the CUDA cores (the kernels use no tensor cores).
+# the CUDA cores (the kernels use no tensor cores). An IEEE expf or logf is
+# one MUFU op (EX2 / LG2): 16 a clock per SM (CUDA programming guide,
+# throughput table, compute capability 9.0), 132 SMs at 1.98 GHz boost.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
 
-SHAPES = [(128, 8), (100, 7), (2048, 8)]
+# K1's template instances (rows of z <= 8, 16, 32, 64 floats; float4 rows
+# where z is 8, 16, 32 or 64; 16 warps a CTA up to z = 16, 8 above), its
+# column-tile ring (RING_SHAPE), and singleton-label rows (17, 8)
+SHAPES = [(128, 8), (100, 7), (128, 16), (100, 12), (128, 32), (100, 24),
+          (100, 48), (2048, 8), (2048, 64), (17, 8)]
+RING_SHAPE = (2048, 64)
 TIMED = [(128, 8), (2048, 8)]       # B=128, z=8 is the main path's shape
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
-SOURCE = "clearvae_torch/csrc/fused_loss.cu"
+SOURCE = {"clear_latent_fwdgrad": "clearvae_torch/csrc/clear_latent.cu",
+          "clear_latent_bwd": "clearvae_torch/csrc/clear_latent.cu",
+          "snn_fwd": "clearvae_torch/csrc/fused_loss.cu",
+          "snn_bwd": "clearvae_torch/csrc/fused_loss.cu"}
 REPLACES = {
     "clear_latent_fwdgrad": "clearvae_tpu/ops/pallas/fused_loss.py:249",
+    # K1's backward: the XLA-fused combine of its custom_vjp
+    "clear_latent_bwd": "clearvae_tpu/ops/pallas/fused_loss.py:314",
     "snn_fwd": "clearvae_tpu/ops/pallas/fused_loss.py:76",
     "snn_bwd": "clearvae_tpu/ops/pallas/fused_loss.py:99",
 }
@@ -139,27 +159,72 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, b: int, z: int):
-    """(bound_ms, bound_by): bytes (each input read once, each output written
-    once) over HBM bandwidth vs fp32 operations over the CUDA-core peak.
-    Operations per half: 2z per pair for S = mu_n mu_nᵀ, 2 exps per pair, and
-    for a gradient 2z per pair for (G + Gᵀ) mu_n plus 2 more exps."""
+def exp_count(name: str, label, ps: bool, z: int) -> int:
+    """The exps and logs (MUFU ops) that these labels make a fused-loss
+    function need, counted as the plain twin computes them: a half's two
+    masked softmaxes take one exp per valid pair (j != i) and one per
+    positive pair, and two logs a row; the gradient reuses them (p_all and
+    p_pos of the [B, B] softmaxes), so it needs no more. KL takes one exp an
+    element of each log-variance. The kernels recompute the softmaxes
+    rather than store [B, B], so they take more exps than this floor."""
+    lbl = label.cpu().numpy()
+    b = len(lbl)
+    same = lbl[:, None] == lbl[None, :]
+    np.fill_diagonal(same, False)
+
+    def half(ps_half: bool) -> int:
+        pos = (lbl[:, None] != lbl[None, :]) if ps_half else same
+        return b * (b - 1) + int(pos.sum()) + 2 * b
+
+    if name == "clear_latent_fwdgrad":
+        return half(False) + half(ps) + 2 * b * z
+    if name == "clear_latent_bwd":
+        return 2 * b * z
+    return half(ps)
+
+
+def bound(name: str, b: int, z: int, label, ps: bool):
+    """(bound_ms, bound_by, bound_unit): the largest of the bytes (each input
+    read once, each output written once) over HBM bandwidth, the fp32
+    operations over the CUDA-core peak, and the exps over the MUFU rate.
+    fp32 operations per half: 2z a pair for S = mu_n mu_nᵀ, 2z more for
+    (G + Gᵀ) mu_n where there is a gradient. bound_by names the first or
+    either of the other two ("operations"); bound_unit says which unit."""
     pairs = b * (b - 1)
-    fwd = pairs * (2 * z + 2)
-    grad = pairs * (2 * z + 2)
     lbl = 8 * b                                   # int64 labels
     if name == "clear_latent_fwdgrad":
         nbytes = 4 * (4 * b * z) + lbl + 4 * 4 + 4 * (2 * b * z)
-        flops = 2 * (fwd + grad) + 2 * 6 * b * z  # + the two KL sums
+        flops = 2 * (pairs * 4 * z) + 2 * 5 * b * z   # + the two KL sums
+    elif name == "clear_latent_bwd":
+        nbytes = 4 * (6 * b * z + 4) + 4 * (4 * b * z)
+        flops = 2 * 8 * b * z
     elif name == "snn_fwd":
         nbytes = 4 * b * z + lbl + 4
-        flops = fwd
+        flops = pairs * 2 * z
     else:
         nbytes = 4 * b * z + lbl + 4 + 4 * b * z
-        flops = fwd + grad
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+        flops = pairs * 4 * z
+    t = {"bytes": nbytes / PEAK_BYTES_PER_S, "fp32": flops / PEAK_FP32_FLOPS,
+         "exp (MUFU)": exp_count(name, label, ps, z) / PEAK_MUFU_PER_S}
+    unit = max(t, key=t.get)
+    return (t[unit] * 1e3, "bytes" if unit == "bytes" else "operations", unit)
+
+
+def device_us(fn, n: int = 50):
+    """(device us per call, kernels per call) of fn from torch.profiler:
+    the summed durations of the kernels (not copies) that n calls launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name, counts = _device_kernels(prof, counts=True)
+    names = [k for k in by_name if not k.startswith(("Memcpy", "Memset"))]
+    return (sum(by_name[k] for k in names) / n,
+            sum(counts[k] for k in names) / n)
 
 
 def gpu_name_and_limit() -> str:
@@ -201,25 +266,46 @@ def _inputs(b, z, seed, dev):
 
 
 def phase_kernels():
-    """Each kernel against its plain twin on the card; returns per-kernel
-    max errors and timings."""
+    """Each fused-loss kernel against its plain twin on the card; returns
+    per-kernel max errors and timings (CUDA-event ms and profiler device us
+    per call, keyed by (name, B))."""
     from clearvae_torch.ops.kernels import fused_loss as FL
 
     dev = torch.device("cuda")
     errs = {k: 0.0 for k in REPLACES}
     w = torch.tensor([0.7, 1.3, 0.11, 0.05], device=dev)
+    g4 = torch.tensor([0.7, -1.3, 0.11, 2.5], device=dev)  # a non-unit cotangent
     for si, (b, z) in enumerate(SHAPES):
+        grid = FL.clear_latent_grid(b, z)
+        if ((b, z) == RING_SHAPE) != (grid["tiles"] > 1):
+            fail(f"K1 at B={b} z={z} runs {grid['tiles']} column tiles")
         for ps in (True, False):
             (mu_c, lv_c, mu_s, lv_s), lbl = _inputs(b, z, 100 + si, dev)
             tag = f"B={b} z={z} ps={ps}"
             # K1: values and the unit-cotangent SNN gradients
-            out, dc, ds = FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, lbl,
-                                                  0.1, ps)
+            k1 = lambda: FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s,  # noqa: E731
+                                                 lbl, 0.1, ps)
+            out, dc, ds = k1()
             rout, rdc, rds = FL.clear_latent_plain(mu_c, lv_c, mu_s, lv_s, lbl,
                                                    0.1, ps)
             e = [check_close(f"K1 terms {tag}", out, rout, **VAL_TOL)]
             e += [check_close(f"K1 dsnn {tag}", a, r, **grad_tol(r))
-                  for a, r in ((dc, rdc), (ds, rds))]
+                  for a, r in zip((dc, ds), (rdc, rds))]
+            # every sum in a fixed order: a second call is bit-identical
+            if not all(torch.equal(a, r) for a, r in zip(k1(), (out, dc, ds))):
+                fail(f"K1 {tag}: two calls on the same inputs differ")
+            # K1's backward kernel against its twin, with a non-unit cotangent
+            bwd = lambda: FL.clear_latent_bwd(mu_c, lv_c, mu_s, lv_s, dc, ds,  # noqa: E731
+                                              g4)
+            eb1 = [check_close(f"K1 bwd {n} {tag}", a, r, **VAL_TOL)
+                   for n, a, r in zip(("dmu_c", "dlv_c", "dmu_s", "dlv_s"), bwd(),
+                                      FL.clear_latent_bwd_plain(
+                                          mu_c, lv_c, mu_s, lv_s, dc, ds, g4))]
+            # one kernel a call, forward and backward
+            for name, fn in (("K1", k1), ("K1 bwd", bwd)):
+                n_k = device_us(fn, n=5)[1]
+                if n_k != 1:
+                    fail(f"{name} {tag}: {n_k} kernels a call, not one")
             # K1 through autograd vs autograd of the plain terms
             args = [t.clone().requires_grad_() for t in (mu_c, lv_c, mu_s, lv_s)]
             terms = torch.stack(FL.fused_clear_latent_loss(
@@ -231,6 +317,7 @@ def phase_kernels():
             e += [check_close(f"K1 grad {tag}", a, r, **grad_tol(r))
                   for a, r in zip(gf, gr)]
             errs["clear_latent_fwdgrad"] = max(errs["clear_latent_fwdgrad"], *e)
+            errs["clear_latent_bwd"] = max(errs["clear_latent_bwd"], *eb1)
             # K2f and K2b, direct and through the autograd.Function
             loss = FL.snn_fwd(mu_s, lbl, 0.1, ps)
             errs["snn_fwd"] = max(errs["snn_fwd"], check_close(
@@ -248,16 +335,21 @@ def phase_kernels():
                                      m2)[0]
             eb.append(check_close(f"K2b autograd {tag}", gk, gp, **grad_tol(gp)))
             errs["snn_bwd"] = max(errs["snn_bwd"], *eb)
-            print(f"[kernels] {tag}: K1 {max(e):.2e}  K2f "
+            print(f"[kernels] {tag}: K1 {max(e):.2e} (bwd {max(eb1):.2e}; one "
+                  f"launch each way, repeat bit-identical; grid {grid})  K2f "
                   f"{errs['snn_fwd']:.2e}  K2b {max(eb):.2e} (max abs err)")
     times = {}
     for b, z in TIMED:
         (mu_c, lv_c, mu_s, lv_s), lbl = _inputs(b, z, 7, dev)
         one = torch.ones((), device=dev)
+        _, dc, ds = FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, lbl, 0.1, True)
         pairs = {
             "clear_latent_fwdgrad": (
                 lambda: FL.clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, lbl, 0.1, True),
                 lambda: FL.clear_latent_plain(mu_c, lv_c, mu_s, lv_s, lbl, 0.1, True)),
+            "clear_latent_bwd": (
+                lambda: FL.clear_latent_bwd(mu_c, lv_c, mu_s, lv_s, dc, ds, g4),
+                lambda: FL.clear_latent_bwd_plain(mu_c, lv_c, mu_s, lv_s, dc, ds, g4)),
             "snn_fwd": (lambda: FL.snn_fwd(mu_s, lbl, 0.1, True),
                         lambda: FL.snn_fwd_plain(mu_s, lbl, 0.1, True)),
             "snn_bwd": (lambda: FL.snn_bwd(mu_s, lbl, one, 0.1, True),
@@ -267,11 +359,15 @@ def phase_kernels():
             # turns: plain, kernel, kernel, plain
             p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                               cuda_ms(plain))
-            bms, by = bound(name, b, z)
+            dus, n_k = device_us(kern)
+            bms, by, unit = bound(name, b, z, lbl, True)
             times[(name, b)] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                                    bound_ms=bms, bound_by=by)
-            print(f"[kernels] {name} B={b} z={z}: kernel {k1:.4f}/{k2:.4f} ms, "
-                  f"plain {p1:.4f}/{p2:.4f} ms, bound {bms:.6f} ms ({by})")
+                                    bound_ms=bms, bound_by=by, bound_unit=unit,
+                                    device_us=dus)
+            print(f"[kernels] {name} B={b} z={z}: kernel {k1:.4f}/{k2:.4f} ms "
+                  f"(events), device {dus:.2f} us/call ({n_k:g} kernels a "
+                  f"call), plain {p1:.4f}/{p2:.4f} ms, bound {bms:.6f} ms "
+                  f"({by}: {unit})")
     return errs, times
 
 
@@ -324,10 +420,13 @@ def phase_style_kernel():
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                           cuda_ms(plain))
         bms, by = k3_bound(codes, x.shape[1])
+        dus, n_k = device_us(kern)
         times[b] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bms,
-                        bound_by=by)
+                        bound_by=by, bound_unit=by if by == "bytes" else "fp32",
+                        device_us=dus)
         print(f"[kernels] style_batch B={b} (codes {K3_PATH_CODES}, severity "
-              f"5): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"5): kernel {k1:.4f}/{k2:.4f} ms (events), device {dus:.2f} "
+              f"us/call ({n_k:g} kernels a call), plain {p1:.4f}/{p2:.4f} ms, "
               f"bound {bms:.6f} ms ({by})")
     return err, times
 
@@ -434,9 +533,11 @@ def phase_main(gpu):
     if not (math.isfinite(mig) and math.isfinite(mse)):
         fail(f"non-finite evaluation: mig={mig} mse={mse}")
     n_eval_batches = -(-len(valid_ds) // bs)
-    if launches["clear_latent_fwdgrad"] != n_steps:
-        fail(f"K1 launched {launches['clear_latent_fwdgrad']} times in "
-             f"{n_steps} train steps")
+    if not launches["clear_latent_fwdgrad"] == launches["clear_latent_bwd"] \
+            == n_steps:
+        fail(f"K1 launched {launches['clear_latent_fwdgrad']} times forward "
+             f"and {launches['clear_latent_bwd']} backward in {n_steps} train "
+             f"steps")
     if launches["snn_fwd"] != 2 * n_eval_batches:
         fail(f"K2f launched {launches['snn_fwd']} times for "
              f"{n_eval_batches} eval batches")
@@ -454,8 +555,9 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
     """Where a train step's time goes, after its path's launch counts are
     read: wall ms per step over n steps without the profiler, device-busy
     ms per step from torch.profiler over n more, the idle share of the
-    unprofiled wall, kernels per step, the fused-loss kernels' (K1/K2f/K2b,
-    all named fused_loss_*) device ms and share, and the top kernels."""
+    unprofiled wall, kernels per step, the fused-loss kernels' (K1 forward
+    and backward, named clear_latent_*; K2f/K2b, named fused_loss_*) device
+    ms and share, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     data, labels = trainer._device_data(train_ds)
@@ -477,7 +579,8 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
     if not by_name:
         fail("the profiler recorded no device activity")
     busy_ms = sum(by_name.values()) / 1e3 / n
-    fused = sum(v for k, v in by_name.items() if "fused_loss_" in k) / 1e3 / n
+    fused = sum(v for k, v in by_name.items()
+                if "fused_loss_" in k or "clear_latent_" in k) / 1e3 / n
     print(f"{tag} train step (B={bs}): wall {wall_ms:.3f} ms "
           f"({prof_wall_ms:.3f} ms under the profiler), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
@@ -592,7 +695,8 @@ def phase_adversarial(gpu, train_ds, valid_ds):
         if launches["snn_fwd"] != n_steps or launches["snn_bwd"] != n_steps:
             fail(f"{name}: K2f/K2b launched {launches['snn_fwd']}/"
                  f"{launches['snn_bwd']} times in {n_steps} fused train steps")
-        if launches["clear_latent_fwdgrad"] or launches["style_batch"]:
+        if launches["clear_latent_fwdgrad"] or launches["clear_latent_bwd"] \
+                or launches["style_batch"]:
             fail(f"{name}: K1 or K3 launched on the adversarial path: {launches}")
         print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s "
               f"({n_steps * bs / fit_s:.1f} images/sec, warm-up included); "
@@ -796,22 +900,22 @@ def phase_downstream(gpu, here):
     return {**other, "style_batch": launches}
 
 
-def _device_kernels(prof):
+def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
     record_function range such as Optimizer.step#Adam.step spans kernels;
-    it is not one)."""
+    it is not one). With counts, the count is per name."""
     from torch.autograd import DeviceType
 
     host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
     by_name: dict = {}
-    n = 0
+    per_name: dict = {}
     for e in prof.events():
         if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
                 and e.name not in host_names):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n += 1
-    return by_name, n
+            per_name[e.name] = per_name.get(e.name, 0) + 1
+    return by_name, (per_name if counts else sum(per_name.values()))
 
 
 def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
@@ -914,12 +1018,13 @@ def main():
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
     # CLEAR-MIM trainers; K3: the downstream zoo)
-    own = {"clear_latent_fwdgrad": "main", "snn_fwd": "adversarial",
-           "snn_bwd": "adversarial", "style_batch": "downstream"}
+    own = {"clear_latent_fwdgrad": "main", "clear_latent_bwd": "main",
+           "snn_fwd": "adversarial", "snn_bwd": "adversarial",
+           "style_batch": "downstream"}
     for name, path in own.items():
         if by_path[name][path] == 0:
             fail(f"{name} was launched no time on the {path} path")
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=by_path[name][own[name]],
                     max_abs_err=errs[name], **times[(name, 128)],
                     library_ms=None, launches_by_path=by_path[name])

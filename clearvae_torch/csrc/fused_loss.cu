@@ -1,19 +1,16 @@
-// Fused CLEAR latent-loss kernels for Hopper (sm_90a), fp32 on the CUDA cores.
+// Fused SNN loss kernels for Hopper (sm_90a), fp32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernels of clearvae_tpu/ops/pallas/fused_loss.py:
-//   clear_latent_fwdgrad  <- _clear_fwdgrad_kernel (K1): KL_c, KL_s, SNN(mu_c),
-//                            SNN or PS-SNN(mu_s) and the unit-cotangent SNN
-//                            gradients of both halves, in one call;
 //   snn_fwd               <- _fwd_kernel (K2f): the SNN / PS-SNN loss of one
 //                            half, with no gradient work;
 //   snn_bwd               <- _bwd_kernel (K2b): g * dSNN/dmu of one half.
+// K1 (_clear_fwdgrad_kernel) is clear_latent.cu, one cooperative launch.
 //
 // What bounds it. The TPU kernels hold whole [n, n] similarity matrices in
 // VMEM; a Hopper SM has 227 KB of shared memory, which holds that only up to
-// B ~ 128. At the main path's shape (B = 128, z = 8) one K1 call moves ~25 KB
-// and does ~1.2 MFLOP (18 ns at the fp32 peak): it is bound by launch latency,
-// not by bytes or FLOPs. At B = 2048 the pair work (~0.3 GFLOP of fp32 FMAs
-// and exps) starts to count.
+// B ~ 128. At B = 128, z = 8 one call moves a few KB and does ~0.3 MFLOP: it
+// is bound by launch latency, not by bytes or FLOPs. At B = 2048 the pair
+// work (~0.1 GFLOP of fp32 FMAs and exps) starts to count.
 //
 // Design. Nothing [B, B] is ever stored. Blocks run in parallel and share no
 // state, so the work is split into passes, each a grid of independent warps:
@@ -31,9 +28,10 @@
 //              accumulates sum_j (G_ij + G_ji) mu_n_j, then applies the
 //              normalization projection (dmu_n - (dmu_n . mu_n) mu_n [r > 1e-8])
 //              / max(r, 1e-8), scaled by g.
-// K1 runs the passes once for both halves (blockIdx.y picks the half), so one
-// K1 call is four launches. K2f stops after reduce. The masking constants are
-// the TPU kernel's: -1e30 fill, -1e29 max floor, 1e-37 sum floor.
+// K2b is the four launches; K2f stops after reduce. The passes still take a
+// second half (blockIdx.y) and a KL term, which only the four-pass K1 used.
+// The masking constants are the TPU kernel's: -1e30 fill, -1e29 max floor,
+// 1e-37 sum floor.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (clearvae_torch/ops/kernels/_build.py). Every entry point launches on the
@@ -326,25 +324,6 @@ extern "C" {
 
 // Floats of scratch one half needs; the caller allocates it.
 int fused_loss_scratch_floats(int B, int z) { return scratch_per_half(B, z); }
-
-// K1. out4 = [kl_c, kl_s, snn(mu_c), snn or ps-snn(mu_s)]; dsnn_c, dsnn_s [B, z]
-// are the unit-cotangent gradients of the two SNN terms. scratch holds two
-// halves.
-int clear_latent_fwdgrad(const float* mu_c, const float* lv_c, const float* mu_s,
-                         const float* lv_s, const int* label, int B, int z,
-                         float tau, int ps, float* out4, float* dsnn_c,
-                         float* dsnn_s, float* scratch, void* stream) {
-  Halves hs;
-  hs.h[0] = half_of(mu_c, lv_c, 0, scratch, B, z);
-  hs.h[1] = half_of(mu_s, lv_s, ps ? 1 : 0, scratch + scratch_per_half(B, z), B, z);
-  hs.h[0].kl = out4 + 0;
-  hs.h[1].kl = out4 + 1;
-  hs.h[0].loss = out4 + 2;
-  hs.h[1].loss = out4 + 3;
-  hs.h[0].dmu = dsnn_c;
-  hs.h[1].dmu = dsnn_s;
-  return run(hs, 2, label, B, z, tau, true, nullptr, (cudaStream_t)stream);
-}
 
 // K2f. loss [1] = SNN or PS-SNN of mu.
 int snn_fwd(const float* mu, const int* label, int B, int z, float tau, int ps,

@@ -1,15 +1,17 @@
 """Fused CLEAR latent-loss kernels: CUDA for Hopper, with their plain twins.
 
-Counterpart of ``clearvae_tpu/ops/pallas/fused_loss.py``. Three kernels in
-``clearvae_torch/csrc/fused_loss.cu`` replace the three Pallas kernels of the
-CLEAR path:
+Counterpart of ``clearvae_tpu/ops/pallas/fused_loss.py``. CUDA kernels in
+``clearvae_torch/csrc/`` replace the three Pallas kernels of the CLEAR path:
 
-- ``clear_latent_fwdgrad`` (K1, for ``_clear_fwdgrad_kernel``): KL_c, KL_s,
-  SNN(mu_c), SNN or PS-SNN(mu_s) and the unit-cotangent SNN gradients of
-  both halves in one call; the backward is an elementwise combine with the
-  closed-form KL gradients.
-- ``snn_fwd`` (K2f, for ``_fwd_kernel``): the loss of one half, no gradient.
-- ``snn_bwd`` (K2b, for ``_bwd_kernel``): g * dSNN/dmu of one half.
+- ``clear_latent_fwdgrad`` (K1, for ``_clear_fwdgrad_kernel``;
+  ``clear_latent.cu``): KL_c, KL_s, SNN(mu_c), SNN or PS-SNN(mu_s) and the
+  unit-cotangent SNN gradients of both halves in one cooperative launch;
+  its backward, ``clear_latent_bwd`` (for ``_fused_clear_bwd``), combines
+  them with the closed-form KL gradients in one elementwise launch.
+- ``snn_fwd`` (K2f, for ``_fwd_kernel``; ``fused_loss.cu``): the loss of one
+  half, no gradient.
+- ``snn_bwd`` (K2b, for ``_bwd_kernel``; ``fused_loss.cu``): g * dSNN/dmu of
+  one half.
 
 Each has a plain PyTorch twin here (``*_plain``) that repeats its arithmetic,
 masking constants included. A wrapper launches its kernel for a CUDA tensor
@@ -37,7 +39,8 @@ _MAX_FLOOR = -1e29
 _SUM_FLOOR = 1e-37
 Z_MAX = 64         # the kernels keep a row of mu in registers
 
-LAUNCHES = {"clear_latent_fwdgrad": 0, "snn_fwd": 0, "snn_bwd": 0}
+LAUNCHES = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
+            "snn_fwd": 0, "snn_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -112,6 +115,19 @@ def clear_latent_plain(mu_c, lv_c, mu_s, lv_s, label, temperature: float,
     return torch.stack([kl_c, kl_s, c_loss, s_loss]), dsnn_c, dsnn_s
 
 
+def clear_latent_bwd_plain(mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s, g):
+    """Plain twin of K1's backward (``_fused_clear_bwd``): the cotangent
+    g = [g_kl_c, g_kl_s, g_c, g_s] of the four terms combined with the SNN
+    gradients and the closed-form KL ones: (dmu_c, dlv_c, dmu_s, dlv_s)."""
+    b = mu_c.shape[0]
+    g_klc, g_kls, g_c, g_s = g.unbind()
+    dmu_c = g_klc * mu_c / b + g_c * dsnn_c
+    dlv_c = g_klc * (-0.5) * (1.0 - torch.exp(lv_c)) / b
+    dmu_s = g_kls * mu_s / b + g_s * dsnn_s
+    dlv_s = g_kls * (-0.5) * (1.0 - torch.exp(lv_s)) / b
+    return dmu_c, dlv_c, dmu_s, dlv_s
+
+
 # ---------------------------------------------------------------------------
 # kernel launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -119,26 +135,32 @@ def clear_latent_plain(mu_c, lv_c, mu_s, lv_s, label, temperature: float,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the extern "C" functions of each csrc/<source>.cu that a wrapper calls
 _SIGNATURES = {
-    "fused_loss_scratch_floats": [_I, _I],
-    "clear_latent_fwdgrad": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
-                             _P, _P],
-    "snn_fwd": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
-    "snn_bwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+    "clear_latent": {
+        "clear_latent_config": [_I, _I, ctypes.POINTER(_I)],
+        "clear_latent_fwdgrad": [_P] * 5 + [_I, _I, _F, _I] + [_P] * 6,
+        "clear_latent_bwd": [_P] * 7 + [_I, _I] + [_P] * 5,
+    },
+    "fused_loss": {
+        "fused_loss_scratch_floats": [_I, _I],
+        "snn_fwd": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
+        "snn_bwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+    },
 }
+_fns: dict = {}     # name -> typed ctypes function, resolved at first use
 
 
-def _lib():
-    from clearvae_torch.ops.kernels import _build
+def _fn(name: str):
+    if name not in _fns:
+        from clearvae_torch.ops.kernels import _build
 
-    lib = _build.load("fused_loss")
-    if not getattr(lib, "_typed", False):
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+        for source, sigs in _SIGNATURES.items():
+            if name in sigs:
+                fn = getattr(_build.load(source), name)
+                fn.argtypes, fn.restype = sigs[name], ctypes.c_int
+                _fns[name] = fn
+    return _fns[name]
 
 
 def _check_inputs(label: Tensor, *mats: Tensor):
@@ -157,12 +179,15 @@ def _check_inputs(label: Tensor, *mats: Tensor):
 
 
 def _f32(t: Tensor) -> Tensor:
+    """t as contiguous float32 for a kernel's pointer; no new tensor (host
+    time is what a step pays) when it already is."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
     return t.detach().to(torch.float32).contiguous()
 
 
 def _run(name: str, *args) -> None:
-    lib = _lib()
-    err = getattr(lib, name)(*args)
+    err = _fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
@@ -170,7 +195,7 @@ def _run(name: str, *args) -> None:
 
 
 def _scratch(n_halves: int, b: int, z: int, device) -> Tensor:
-    per_half = _lib().fused_loss_scratch_floats(b, z)
+    per_half = _fn("fused_loss_scratch_floats")(b, z)
     return torch.empty(n_halves * per_half, dtype=torch.float32, device=device)
 
 
@@ -178,24 +203,53 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def clear_latent_grid(b: int, z: int) -> dict:
+    """K1's launch shape for (B, z) on the current CUDA device: CTAs per half
+    ``T``, columns per tile ``TJ``, ``tiles`` and ``smem`` bytes per CTA."""
+    out = (_I * 4)()
+    err = _fn("clear_latent_config")(b, z, out)
+    if err != 0:
+        raise RuntimeError(f"clear_latent_config({b}, {z}) failed: "
+                           f"cudaError {err}")
+    return dict(zip(("T", "TJ", "tiles", "smem"), out))
+
+
 def clear_latent_fwdgrad(mu_c, lv_c, mu_s, lv_s, label, temperature: float,
                          ps: bool):
-    """K1: ([kl_c, kl_s, c_loss, s_loss], dsnn_c, dsnn_s)."""
+    """K1: ([kl_c, kl_s, c_loss, s_loss], dsnn_c, dsnn_s). On a card, one
+    launch; the outputs and the kernel's scratch are views of one buffer."""
     b, z = _check_inputs(label, mu_c, lv_c, mu_s, lv_s)
     if mu_c.device.type == "cpu":
         return clear_latent_plain(*(t.detach() for t in (mu_c, lv_c, mu_s, lv_s)),
                                   label, temperature, ps)
     dev = mu_c.device
     ins = [_f32(t) for t in (mu_c, lv_c, mu_s, lv_s)]
-    lbl = label.to(torch.int32).contiguous()
-    out = torch.empty(4, dtype=torch.float32, device=dev)
-    dsnn_c = torch.empty((b, z), dtype=torch.float32, device=dev)
-    dsnn_s = torch.empty((b, z), dtype=torch.float32, device=dev)
-    scratch = _scratch(2, b, z, dev)
+    lbl = label.to(device=dev, dtype=torch.int64).contiguous()
+    # one buffer: [partial sums: 2 halves x ceil(B/32) CTAs x 3 doubles |
+    #  out4 | exchange: 2 halves x 3 x round_up(B, 4) | dsnn_c | dsnn_s]
+    sizes = [12 * -(-b // 32), 4, 6 * -(-b // 4) * 4, b * z, b * z]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    part, out, ex, dsnn_c, dsnn_s = buf.split(sizes)
     _run("clear_latent_fwdgrad", *(t.data_ptr() for t in ins), lbl.data_ptr(),
          b, z, float(temperature), int(bool(ps)), out.data_ptr(),
-         dsnn_c.data_ptr(), dsnn_s.data_ptr(), scratch.data_ptr(), _stream(dev))
-    return out, dsnn_c, dsnn_s
+         dsnn_c.data_ptr(), dsnn_s.data_ptr(), ex.data_ptr(), part.data_ptr(),
+         _stream(dev))
+    return out, dsnn_c.view(b, z), dsnn_s.view(b, z)
+
+
+def clear_latent_bwd(mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s, g):
+    """K1's backward: (dmu_c, dlv_c, dmu_s, dlv_s) for the cotangent ``g``
+    [4] of the four terms; on a card one launch that reads ``g`` there."""
+    if mu_c.device.type == "cpu":
+        return clear_latent_bwd_plain(mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s, g)
+    b, z = mu_c.shape
+    ins = [_f32(t) for t in (mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s)]
+    gg = _f32(g.reshape(4))
+    out = torch.empty((4, b, z), dtype=torch.float32,
+                      device=mu_c.device).unbind()
+    _run("clear_latent_bwd", *(t.data_ptr() for t in ins), gg.data_ptr(), b, z,
+         *(o.data_ptr() for o in out), _stream(mu_c.device))
+    return out
 
 
 def snn_fwd(mu: Tensor, label: Tensor, temperature: float, ps: bool) -> Tensor:
@@ -233,8 +287,9 @@ def snn_bwd(mu: Tensor, label: Tensor, g: Tensor, temperature: float,
 
 
 class _FusedClear(torch.autograd.Function):
-    """K1 forward emits the SNN gradients; backward combines them with the
-    closed-form KL gradients (``_fused_clear_bwd`` of the JAX package)."""
+    """K1 forward emits the SNN gradients; its backward kernel combines them
+    with the closed-form KL gradients (``_fused_clear_bwd`` of the JAX
+    package)."""
 
     @staticmethod
     def forward(ctx, mu_c, lv_c, mu_s, lv_s, label, temperature, ps):
@@ -245,14 +300,7 @@ class _FusedClear(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s = ctx.saved_tensors
-        b = mu_c.shape[0]
-        g_klc, g_kls, g_c, g_s = g.unbind()
-        dmu_c = g_klc * mu_c / b + g_c * dsnn_c
-        dlv_c = g_klc * (-0.5) * (1.0 - torch.exp(lv_c)) / b
-        dmu_s = g_kls * mu_s / b + g_s * dsnn_s
-        dlv_s = g_kls * (-0.5) * (1.0 - torch.exp(lv_s)) / b
-        return dmu_c, dlv_c, dmu_s, dlv_s, None, None, None
+        return (*clear_latent_bwd(*ctx.saved_tensors, g), None, None, None)
 
 
 class _FusedSNN(torch.autograd.Function):
