@@ -13,13 +13,14 @@ Phases, each fatal on failure:
                 K2f, K2b: values and autograd gradients at every (B, z) of
                 SHAPES (each of K1's template instances, its column-tile
                 ring, singleton-label rows), ps on and off; K1's backward
-                with a non-unit cotangent; two K1 calls bit-identical; K1
-                one launch a call each way (profiler). Timed at B = 128 and
-                2048 with CUDA events and, per call, the profiler's device
-                time. The
+                with a non-unit cotangent; two K1 calls and two K2b calls
+                bit-identical; K1 one launch a call each way and K2b one
+                launch a call (profiler). Timed at B = 128 and 2048 with
+                CUDA events and, per call, the profiler's device time. The
                 styler K3: all seven codes × severities 1–5 at B = 128, 100
-                and 512 (atol 1e-3 on the 0..255 scale), timed at B = 128
-                and 512.
+                and 512 (atol 1e-3 on the 0..255 scale), and rows of
+                negative code left bit-equal in a pre-filled ``out``; timed
+                at B = 128 and 512.
 3. main       — the flagship configuration through the user entry points:
                 ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
                 β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
@@ -50,10 +51,11 @@ Phases, each fatal on failure:
                 fused style→logits pass, and the result JSON is written.
                 Width is the flagship's; depth is cut (20,000 train / 4,000
                 test synthetic digits, 2 VAE, CNN and probe epochs). K3's
-                launches must equal the styled batches and chunks that hold
-                a K3 sample, which the phase counts itself; the zoo is
+                launches must equal one per styled batch and chunk and
+                severity group, which the phase counts itself; the zoo is
                 unfused, so K1/K2f/K2b must not launch. Then a styled CLEAR
-                train step is profiled: K3's and styling's share of it.
+                train step is profiled: K3's and styling's share of it, and
+                styling's kernels and host syncs a batch.
 
 Phases run in the order 1, 2, 3, 5, 4 (phase 5 trains on phase 3's data).
 
@@ -94,7 +96,7 @@ VAL_TOL = dict(rtol=2e-5, atol=1e-6)
 SOURCE = {"clear_latent_fwdgrad": "clearvae_torch/csrc/clear_latent.cu",
           "clear_latent_bwd": "clearvae_torch/csrc/clear_latent.cu",
           "snn_fwd": "clearvae_torch/csrc/fused_loss.cu",
-          "snn_bwd": "clearvae_torch/csrc/fused_loss.cu"}
+          "snn_bwd": "clearvae_torch/csrc/clear_latent.cu"}
 REPLACES = {
     "clear_latent_fwdgrad": "clearvae_tpu/ops/pallas/fused_loss.py:249",
     # K1's backward: the XLA-fused combine of its custom_vjp
@@ -227,6 +229,18 @@ def device_us(fn, n: int = 50):
             sum(counts[k] for k in names) / n)
 
 
+def kernels_per_call(fn, n: int = 10, tries: int = 3) -> float:
+    """Kernels a call of fn launches, by the profiler over n calls. A
+    profile that recorded no kernel at all is the profiler's loss, not a
+    count (fn has run and been checked by then), so it is taken again, up
+    to ``tries`` times; a partial record counts as it is."""
+    for _ in range(tries):
+        n_k = device_us(fn, n=n)[1]
+        if n_k > 0:
+            return n_k
+    fail(f"the profiler recorded no kernel in {tries} profiles of {n} calls")
+
+
 def gpu_name_and_limit() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -303,7 +317,7 @@ def phase_kernels():
                                           mu_c, lv_c, mu_s, lv_s, dc, ds, g4))]
             # one kernel a call, forward and backward
             for name, fn in (("K1", k1), ("K1 bwd", bwd)):
-                n_k = device_us(fn, n=5)[1]
+                n_k = kernels_per_call(fn)
                 if n_k != 1:
                     fail(f"{name} {tag}: {n_k} kernels a call, not one")
             # K1 through autograd vs autograd of the plain terms
@@ -325,8 +339,14 @@ def phase_kernels():
                 **VAL_TOL))
             g = torch.tensor(1.7, device=dev)
             rg = FL.snn_bwd_plain(mu_s, lbl, g, 0.1, ps)
-            eb = [check_close(f"K2b {tag}", FL.snn_bwd(mu_s, lbl, g, 0.1, ps),
-                              rg, **grad_tol(rg))]
+            k2b = lambda: FL.snn_bwd(mu_s, lbl, g, 0.1, ps)  # noqa: E731
+            dmu = k2b()
+            eb = [check_close(f"K2b {tag}", dmu, rg, **grad_tol(rg))]
+            if not torch.equal(k2b(), dmu):
+                fail(f"K2b {tag}: two calls on the same inputs differ")
+            n_k = kernels_per_call(k2b)
+            if n_k != 1:
+                fail(f"K2b {tag}: {n_k} kernels a call, not one")
             m1 = mu_s.clone().requires_grad_()
             gk = torch.autograd.grad(1.7 * FL.fused_contrastive_loss(
                 m1, lv_s, lbl, temperature=0.1, ps=ps), m1)[0]
@@ -337,7 +357,8 @@ def phase_kernels():
             errs["snn_bwd"] = max(errs["snn_bwd"], *eb)
             print(f"[kernels] {tag}: K1 {max(e):.2e} (bwd {max(eb1):.2e}; one "
                   f"launch each way, repeat bit-identical; grid {grid})  K2f "
-                  f"{errs['snn_fwd']:.2e}  K2b {max(eb):.2e} (max abs err)")
+                  f"{errs['snn_fwd']:.2e}  K2b {max(eb):.2e} (one launch, "
+                  f"repeat bit-identical) (max abs err)")
     times = {}
     for b, z in TIMED:
         (mu_c, lv_c, mu_s, lv_s), lbl = _inputs(b, z, 7, dev)
@@ -410,6 +431,23 @@ def phase_style_kernel():
             err = max(err, e)
         print(f"[kernels] K3 B={b}: 7 codes x severities 1-5, max abs err "
               f"{err:.2e} (0..255 scale)")
+        # rows of negative code are not K3's: left as ``out`` holds them
+        neg = torch.where(torch.arange(b, device=dev) % 3 == 1, -1, code)
+        prior = torch.rand(x.shape, generator=torch.Generator(device=dev)
+                           .manual_seed(b), device=dev)
+        mine = neg >= 0
+        for sev in range(1, 6):
+            out = prior.clone()
+            if K3.style_batch_kernel(x, neg.to(torch.int32), sev,
+                                     out=out) is not out:
+                fail(f"K3 B={b}: out= was not written in place")
+            if not torch.equal(out[~mine], prior[~mine]):
+                fail(f"K3 B={b} severity={sev}: a row of negative code changed")
+            err = max(err, check_close(
+                f"K3 out= B={b} severity={sev}", out[mine],
+                K3.style_plain(x, code, sev)[mine], rtol=0.0, atol=K3_ATOL))
+        print(f"[kernels] K3 B={b}: negative-code rows untouched in out= at "
+              f"severities 1-5; the others within {err:.2e}")
     times = {}
     for b in K3_TIMED:
         x = torch.as_tensor(imgs[:b], device=dev)
@@ -431,18 +469,13 @@ def phase_style_kernel():
     return err, times
 
 
-def k3_launches_expected(styles, style_idx: np.ndarray, batches) -> int:
-    """K3 calls that styling ``batches`` (index arrays into ``style_idx``,
-    -1 for a zero-padded row, which is style 0) makes: one for each batch
-    and severity group that holds a sample."""
+def k3_launches_expected(styles, batches) -> int:
+    """K3 calls that styling ``batches`` (index arrays of a dataset) makes:
+    one for each batch and severity group, over the whole batch, whether or
+    not the batch holds a sample of the group's styles."""
     from clearvae_torch.ops.corruptions import k3_groups
 
-    luts = [np.asarray(lut) for lut in k3_groups(styles).values()]
-    n = 0
-    for idx in batches:
-        s = np.where(idx >= 0, style_idx[np.maximum(idx, 0)], 0)
-        n += sum(bool((lut[s] >= 0).any()) for lut in luts)
-    return n
+    return sum(len(idx) > 0 for idx in batches) * len(k3_groups(styles))
 
 
 def chunk_batches(n: int, chunk: int):
@@ -496,12 +529,11 @@ def phase_main(gpu):
     valid_ds.materialize(dev)
     torch.cuda.synchronize()
     k3_materialize = K3.LAUNCHES["style"]
-    want = sum(k3_launches_expected(d.styles, d.style_idx,
-                                    chunk_batches(len(d), 512))
+    want = sum(k3_launches_expected(d.styles, chunk_batches(len(d), 512))
                for d in (train_ds, valid_ds))
     if k3_materialize != want:
         fail(f"K3 launched {k3_materialize} times in materialize; its "
-             f"chunks hold K3 samples {want} times")
+             f"chunks and severity groups make {want}")
     print(f"[main] data: {len(train_ds)} train / {len(valid_ds)} held-out "
           f"images, six styles, made and styled in "
           f"{time.perf_counter() - t0:.2f} s; K3 launches in materialize: "
@@ -763,7 +795,7 @@ def _expected_downstream_k3(rec) -> int:
         nb = len(ds) // bs
         for e in range(a["start_epoch"], a["start_epoch"] + a["epochs"]):
             perm = np.random.RandomState(tr.seed + e).permutation(len(ds))
-            n += k3_launches_expected(ds.styles, ds.style_idx,
+            n += k3_launches_expected(ds.styles,
                                       perm[: nb * bs].reshape(nb, bs))
     for c in rec.calls.get("evaluate", []):
         a = c["args"]
@@ -773,14 +805,14 @@ def _expected_downstream_k3(rec) -> int:
         bs = min(a["batch_size"], len(ds))
         batches = [np.arange(s, min(s + bs, len(ds)))
                    for s in range(0, len(ds), bs)]
-        n += k3_launches_expected(ds.styles, ds.style_idx, batches)
+        n += k3_launches_expected(ds.styles, batches)
     for name in ("encode", "cnn_evaluate"):
         for c in rec.calls.get(name, []):
             a = c["args"]
             ds = a["ds"]
             if not a["style_on_device"]:
                 fail(f"a downstream {name} pass did not style on the device")
-            n += k3_launches_expected(ds.styles, ds.style_idx,
+            n += k3_launches_expected(ds.styles,
                                       chunk_batches(len(ds), a["batch_size"]))
     return n
 
@@ -826,7 +858,7 @@ def phase_downstream(gpu, here):
     want = _expected_downstream_k3(rec)
     if launches != want:
         fail(f"K3 launched {launches} times on the downstream path; its "
-             f"styled batches and chunks hold K3 samples {want} times")
+             f"styled batches and chunks and severity groups make {want}")
     if any(other.values()):
         fail(f"the unfused downstream path launched fused-loss kernels: {other}")
     trainers = [c["args"]["self"] for c in rec.calls["fit"]]
@@ -921,8 +953,8 @@ def _device_kernels(prof, counts: bool = False):
 def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
     """Where a styled train step's time goes: wall ms of styling + step,
     styling alone and the step alone over n batches, then the device time of
-    each under the profiler, and K3's and styling's share of the styled
-    step's device time."""
+    each under the profiler, K3's and styling's share of the styled step's
+    device time, and styling's kernels and host syncs a batch."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = trainer.device
@@ -944,7 +976,7 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
         for i, x in zip(idx, pre):
             trainer.train_step(x, labels[i], trainer._train_noise(bs))
 
-    walls, busy, k3 = {}, {}, 0.0
+    walls, busy, kernels, k3 = {}, {}, {}, 0.0
     for name, fn in (("styled step", styled), ("styling", style_only),
                      ("step", step_only)):
         fn()
@@ -957,19 +989,32 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        by_name, _ = _device_kernels(prof)
+        by_name, n_kernels = _device_kernels(prof)
         if not by_name:
             fail("the profiler recorded no device activity")
         busy[name] = sum(by_name.values()) / 1e3 / n
+        kernels[name] = n_kernels / n
         if name == "styled step":
             k3 = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"[profile] styled train step (B={bs}): wall {walls['styled step']:.3f}"
           f" ms, device busy {busy['styled step']:.4f} ms, idle share "
           f"{1 - busy['styled step'] / walls['styled step']:.3f}")
+    # host syncs of one styling call, as torch's sync debug mode reports them
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ds.style(raw[idx[0]], sidx[idx[0]], draws[idx[0]])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
     print(f"[profile]   styling alone: wall {walls['styling']:.3f} ms, device "
           f"{busy['styling']:.4f} ms ({busy['styling'] / busy['styled step']:.3f}"
-          f" of the styled step's device time); K3 {k3:.4f} ms "
+          f" of the styled step's device time), {kernels['styling']:g} kernels "
+          f"and {syncs} host syncs a batch; K3 {k3:.4f} ms "
           f"({k3 / busy['styled step']:.4f} of it)")
     print(f"[profile]   step alone: wall {walls['step']:.3f} ms, device "
           f"{busy['step']:.4f} ms")

@@ -1,12 +1,15 @@
 // K1, the fused CLEAR latent loss, for Hopper (sm_90a): one cooperative
-// launch forward, one elementwise launch backward, fp32 on the CUDA cores.
+// launch forward, one elementwise launch backward, fp32 on the CUDA cores;
+// and K2b, the SNN gradient of one half, as a one-half mode of K1's kernel.
 //
 // Replaces, in clearvae_tpu/ops/pallas/fused_loss.py:
 //   clear_latent_fwdgrad <- _clear_fwdgrad_kernel (K1, pallas_call at :296):
 //                           KL_c, KL_s, SNN(mu_c), SNN or PS-SNN(mu_s) and the
 //                           unit-cotangent SNN gradients of both halves;
 //   clear_latent_bwd     <- _fused_clear_bwd (:314), the combine of those
-//                           gradients with the closed-form KL gradients.
+//                           gradients with the closed-form KL gradients;
+//   snn_bwd              <- _bwd_kernel (K2b, pallas_call at :187):
+//                           g * dSNN/dmu of one half, g a device scalar.
 //
 // What bounds it. Per half the function needs B(B-1) pairs, each a z-deep
 // dot product for S and another for (G + G^T) mu_n (~2.7e8 fp32 operations
@@ -60,6 +63,15 @@
 // bit-identical. T = min(ceil(B / 32), co-resident CTAs / 2), from the
 // occupancy of the (B, z) shape's shared memory, computed once per shape.
 //
+// K2b is the same kernel with Params::single set, launched on grid (T, 1):
+// one half (mu, SNN or PS-SNN by ps), no KL sums and no loss written, and
+// the gradient of pass B multiplied by the cotangent g, read on the device.
+// A flag and not a template parameter: the branches it adds are uniform
+// and cost nothing beside the pair loops, while a template mode would double
+// the eight instances that dominate this file's build time. T, TJ and the
+// column-tile ring are K1's (configure), so K2b takes every (B, z) that K1
+// takes, and two calls are bit-identical for the same reason.
+//
 // The tensor cores are not used: S = mu_n mu_n^T has contraction depth z = 8,
 // a TF32 mma misses rtol 2e-5 without a 3xTF32 split, and it would save only
 // the 2z FMAs of a pair, while the exps and the issue slots around them set
@@ -104,10 +116,12 @@ struct Params {
   const long long* label;   // [B]
   float* dmu[2];            // [B, z] unit-cotangent SNN gradients
   float* out4;              // kl_c, kl_s, snn(mu_c), snn or ps-snn(mu_s)
-  float* ex;                // [2][3][Bp]: lse_all, lse_pos, has_pos
-  double* part;             // [2][T][3]: positive rows, sum of row losses, KL
+  float* ex;                // [halves][3][Bp]: lse_all, lse_pos, has_pos
+  double* part;             // [halves][T][3]: positive rows, row losses, KL
+  const float* g;           // K2b: the cotangent [1]; K1: null
   float tau;
   int B, Bp, z, T, TJ, ntiles, ps;
+  int single;               // K2b: one half (mu[0]), no KL, scaled by *g
 };
 
 __host__ __device__ inline int round_up(int a, int m) {
@@ -373,7 +387,7 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
   h.stage = L.stage;
   h.lab_off = round_up(p.TJ, 4) * z;
   const bool one_tile = h.ntiles == 1;
-  const bool ps = half == 1 && p.ps != 0;
+  const bool ps = (half == 1 || p.single) && p.ps != 0;
   // s = (mu_n_i . mu_n_j) * (1 / tau): within 1.5 ulp of the division
   const float inv_tau = 1.f / p.tau;
   const int groups = (B + kRows - 1) / kRows;
@@ -387,7 +401,8 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
   __pipeline_commit();
   // this CTA's share of the KL terms, its loads in flight with the staging
   double kl = 0.0;
-  for (int e = blockIdx.x * NT + threadIdx.x; e < B * z; e += gridDim.x * NT) {
+  const int n_kl = p.single ? 0 : B * z;
+  for (int e = blockIdx.x * NT + threadIdx.x; e < n_kl; e += gridDim.x * NT) {
     const float lv = h.lv[e], m = h.mu[e];
     kl += (double)(1.f + lv - m * m - expf(lv));
   }
@@ -501,7 +516,7 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
     }
     if (lane == 0) {
       tot[0] = c;
-      if (blockIdx.x == 0) {
+      if (blockIdx.x == 0 && !p.single) {
         const float nf = (float)fmax(c, 1.0);
         p.out4[half] = (float)(-0.5 * k) / (float)B;
         p.out4[2 + half] = (float)l / nf;
@@ -516,6 +531,7 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
   }
   __syncthreads();
   const float denom = p.tau * (float)fmax(tot[0], 1.0);
+  const float gv = p.single ? *p.g : 1.f;  // K1's unit cotangent: exact
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
     const int i = g * kRows + lane;
     const bool valid = i < B;
@@ -577,7 +593,7 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
       float* out = h.dmu + (size_t)i * z;
 #pragma unroll
       for (int k = 0; k < ZM; ++k)
-        if (k < z) out[k] = (acc[k] - proj * xi[k]) / rc;
+        if (k < z) out[k] = gv * (acc[k] - proj * xi[k]) / rc;
     }
     __syncthreads();  // the merge area is reused by the next row group
   }
@@ -687,6 +703,33 @@ int configure(int B, int z, Config* out) {
   return 0;
 }
 
+// One cooperative launch of the forward kernel on grid (T, halves).
+int launch(const Params& p, const Config& c, int halves, cudaStream_t st) {
+  Params q = p;
+  void* args[] = {&q};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)pick(p.z), dim3(c.T, halves), dim3(kRows * slices_for(p.z)),
+      args, c.smem, st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so it does not surface in a later call
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+Params base_params(int B, int z, float tau, int ps, const Config& c) {
+  Params p = {};
+  p.tau = tau;
+  p.B = B;
+  p.Bp = round_up(B, 4);
+  p.z = z;
+  p.T = c.T;
+  p.TJ = c.TJ;
+  p.ntiles = c.ntiles;
+  p.ps = ps ? 1 : 0;
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -721,7 +764,7 @@ int clear_latent_fwdgrad(const float* mu_c, const float* lv_c,
   Config c;
   const int err = configure(B, z, &c);
   if (err != 0) return err;
-  Params p;
+  Params p = base_params(B, z, tau, ps, c);
   p.mu[0] = mu_c;
   p.mu[1] = mu_s;
   p.lv[0] = lv_c;
@@ -732,24 +775,30 @@ int clear_latent_fwdgrad(const float* mu_c, const float* lv_c,
   p.out4 = out4;
   p.ex = ex;
   p.part = part;
-  p.tau = tau;
-  p.B = B;
-  p.Bp = round_up(B, 4);
-  p.z = z;
-  p.T = c.T;
-  p.TJ = c.TJ;
-  p.ntiles = c.ntiles;
-  p.ps = ps ? 1 : 0;
-  void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)pick(z), dim3(c.T, 2), dim3(kRows * slices_for(z)), args,
-      c.smem,
-      (cudaStream_t)stream);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // clear it, so it does not surface in a later call
-    return (int)e;
-  }
-  return (int)cudaGetLastError();
+  return launch(p, c, 2, (cudaStream_t)stream);
+}
+
+// K2b, one cooperative launch on grid (T, 1): dmu [B, z] = g[0] * dSNN/dmu,
+// SNN or (ps) PS-SNN of mu, with g a device scalar. ex holds
+// 3 * round_up(B, 4) floats and part 3 * ceil(B / 32) doubles of scratch;
+// the caller allocates both.
+int snn_bwd(const float* mu, const long long* label, const float* g, int B,
+            int z, float tau, int ps, float* dmu, float* ex, double* part,
+            void* stream) {
+  if (B < 1 || z < 1 || z > 64 || !(tau > 0.f))
+    return (int)cudaErrorInvalidValue;
+  Config c;
+  const int err = configure(B, z, &c);
+  if (err != 0) return err;
+  Params p = base_params(B, z, tau, ps, c);
+  p.mu[0] = p.mu[1] = mu;
+  p.label = label;
+  p.dmu[0] = p.dmu[1] = dmu;
+  p.ex = ex;
+  p.part = part;
+  p.g = g;
+  p.single = 1;
+  return launch(p, c, 1, (cudaStream_t)stream);
 }
 
 // K1 backward, one launch: dmu_c, dlv_c, dmu_s, dlv_s [B, z] from the

@@ -1,10 +1,10 @@
-// Fused SNN loss kernels for Hopper (sm_90a), fp32 on the CUDA cores.
+// The fused SNN loss kernel K2f for Hopper (sm_90a), fp32 on the CUDA cores.
 //
-// Replaces the Pallas TPU kernels of clearvae_tpu/ops/pallas/fused_loss.py:
+// Replaces the Pallas TPU kernel of clearvae_tpu/ops/pallas/fused_loss.py:
 //   snn_fwd               <- _fwd_kernel (K2f): the SNN / PS-SNN loss of one
-//                            half, with no gradient work;
-//   snn_bwd               <- _bwd_kernel (K2b): g * dSNN/dmu of one half.
-// K1 (_clear_fwdgrad_kernel) is clear_latent.cu, one cooperative launch.
+//                            half, with no gradient work.
+// K1 (_clear_fwdgrad_kernel) and K2b (_bwd_kernel) are clear_latent.cu, one
+// cooperative launch each.
 //
 // What bounds it. The TPU kernels hold whole [n, n] similarity matrices in
 // VMEM; a Hopper SM has 227 KB of shared memory, which holds that only up to
@@ -14,7 +14,7 @@
 //
 // Design. Nothing [B, B] is ever stored. Blocks run in parallel and share no
 // state, so the work is split into passes, each a grid of independent warps:
-//   normalize  one thread per row: r = |mu|, mu_n = mu / max(r, 1e-8).
+//   normalize  one thread per row: mu_n = mu / max(|mu|, 1e-8).
 //   rowstats   one warp per row i (8 rows per block): the lanes walk the
 //              columns j, build s_ij = mu_n_i . mu_n_j / tau on the fly (z <= 64
 //              lives in registers) and keep two online logsumexps, over the
@@ -23,13 +23,8 @@
 //              Writes lse_all[i], lse_pos[i], has_pos[i].
 //   reduce     one block: n_finite = max(#rows with a positive, 1), the mean
 //              row loss and, for K1, the two KL sums (accumulated in double).
-//   grad       one warp per row i: rebuilds G_ij = ok_i (p_all_ij - p_pos_ij) /
-//              (tau n_finite) and G_ji from the stored lse of rows i and j,
-//              accumulates sum_j (G_ij + G_ji) mu_n_j, then applies the
-//              normalization projection (dmu_n - (dmu_n . mu_n) mu_n [r > 1e-8])
-//              / max(r, 1e-8), scaled by g.
-// K2b is the four launches; K2f stops after reduce. The passes still take a
-// second half (blockIdx.y) and a KL term, which only the four-pass K1 used.
+// The passes still take a second half (blockIdx.y) and a KL term, which only
+// the four-pass K1 used.
 // The masking constants are the TPU kernel's: -1e30 fill, -1e29 max floor,
 // 1e-37 sum floor.
 //
@@ -54,14 +49,12 @@ struct Half {
   const float* mu;  // [B, z]
   const float* lv;  // [B, z] log-variance for the KL term, or null
   float* mu_n;      // [B, z] scratch: normalized rows
-  float* r;         // [B] scratch: row norms (unclamped)
   float* lse_all;   // [B] scratch
   float* lse_pos;   // [B] scratch
   float* has_pos;   // [B] scratch: 1 if the row has a positive pair
   float* nf;        // [1] scratch: n_finite
   float* loss;      // [1] output or null
   float* kl;        // [1] output or null
-  float* dmu;       // [B, z] output or null
   int ps;           // 1: positives are the other-label pairs (PS-SNN)
 };
 
@@ -101,10 +94,8 @@ __global__ void fused_loss_normalize(Halves hs, int B, int z) {
   const float* m = h.mu + (size_t)i * z;
   float ss = 0.f;
   for (int k = 0; k < z; ++k) ss = fmaf(m[k], m[k], ss);
-  const float r = sqrtf(ss);
-  const float rc = fmaxf(r, kEps);
+  const float rc = fmaxf(sqrtf(ss), kEps);
   for (int k = 0; k < z; ++k) h.mu_n[(size_t)i * z + k] = m[k] / rc;
-  h.r[i] = r;
 }
 
 template <int ZM>
@@ -200,65 +191,13 @@ __global__ void fused_loss_reduce(Halves hs, int n_halves, int B, int z) {
   }
 }
 
-template <int ZM>
-__global__ void fused_loss_grad(Halves hs, const int* __restrict__ label, int B,
-                            int z, float tau, const float* __restrict__ g) {
-  const Half h = pick(hs, blockIdx.y);
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= B) return;  // uniform across the warp
-  float xi[ZM], acc[ZM];
-#pragma unroll
-  for (int k = 0; k < ZM; ++k) {
-    xi[k] = k < z ? h.mu_n[(size_t)i * z + k] : 0.f;
-    acc[k] = 0.f;
-  }
-  const int li = label[i];
-  const bool ok_i = h.has_pos[i] > 0.5f;
-  const float la_i = h.lse_all[i], lp_i = h.lse_pos[i];
-  const float denom = tau * h.nf[0];
-  for (int j = lane; j < B; j += 32) {
-    if (j == i) continue;
-    const float* xj = h.mu_n + (size_t)j * z;
-    const float s = row_dot<ZM>(xi, xj, z) / tau;
-    const bool pos = h.ps ? (label[j] != li) : (label[j] == li);
-    float c = 0.f;
-    if (ok_i) c += expf(s - la_i) - (pos ? expf(s - lp_i) : 0.f);
-    if (h.has_pos[j] > 0.5f)
-      c += expf(s - h.lse_all[j]) - (pos ? expf(s - h.lse_pos[j]) : 0.f);
-    c /= denom;
-#pragma unroll
-    for (int k = 0; k < ZM; ++k)
-      if (k < z) acc[k] = fmaf(c, xj[k], acc[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < ZM; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] += __shfl_xor_sync(kFull, acc[k], off);
-  }
-  if (lane == 0) {
-    float inner = 0.f;
-#pragma unroll
-    for (int k = 0; k < ZM; ++k) inner = fmaf(acc[k], xi[k], inner);
-    const float r = h.r[i];
-    const float proj = r > kEps ? inner : 0.f;
-    const float rc = fmaxf(r, kEps);
-    const float scale = g != nullptr ? g[0] : 1.f;
-#pragma unroll
-    for (int k = 0; k < ZM; ++k)
-      if (k < z) h.dmu[(size_t)i * z + k] = scale * (acc[k] - proj * xi[k]) / rc;
-  }
-}
-
-// Per-half scratch layout, in floats: mu_n [B*z], r, lse_all, lse_pos,
+// Per-half scratch layout, in floats: mu_n [B*z], lse_all, lse_pos,
 // has_pos [B each], nf [1].
-int scratch_per_half(int B, int z) { return B * z + 4 * B + 1; }
+int scratch_per_half(int B, int z) { return B * z + 3 * B + 1; }
 
 void carve(Half& h, float* scratch, int B, int z) {
   h.mu_n = scratch;
-  h.r = h.mu_n + (size_t)B * z;
-  h.lse_all = h.r + B;
+  h.lse_all = h.mu_n + (size_t)B * z;
   h.lse_pos = h.lse_all + B;
   h.has_pos = h.lse_pos + B;
   h.nf = h.has_pos + B;
@@ -271,22 +210,15 @@ void launch_rowstats(const Halves& hs, int nh, const int* label, int B, int z,
   fused_loss_rowstats<ZM><<<grid, 32 * kWarps, 0, st>>>(hs, label, B, z, tau);
 }
 
-template <int ZM>
-void launch_grad(const Halves& hs, int nh, const int* label, int B, int z,
-                 float tau, const float* g, cudaStream_t st) {
-  dim3 grid((B + kWarps - 1) / kWarps, nh);
-  fused_loss_grad<ZM><<<grid, 32 * kWarps, 0, st>>>(hs, label, B, z, tau, g);
-}
-
 #define RETURN_IF_ERROR()                          \
   do {                                             \
     const cudaError_t err_ = cudaGetLastError();   \
     if (err_ != cudaSuccess) return (int)err_;     \
   } while (0)
 
-// normalize -> rowstats -> reduce [-> grad] over nh halves.
+// normalize -> rowstats -> reduce over nh halves.
 int run(const Halves& hs, int nh, const int* label, int B, int z, float tau,
-        bool grad, const float* g, cudaStream_t st) {
+        cudaStream_t st) {
   if (B < 1 || z < 1 || z > 64 || !(tau > 0.f)) return (int)cudaErrorInvalidValue;
   dim3 ngrid((B + 255) / 256, nh);
   fused_loss_normalize<<<ngrid, 256, 0, st>>>(hs, B, z);
@@ -298,13 +230,6 @@ int run(const Halves& hs, int nh, const int* label, int B, int z, float tau,
   RETURN_IF_ERROR();
   fused_loss_reduce<<<1, kReduceThreads, 0, st>>>(hs, nh, B, z);
   RETURN_IF_ERROR();
-  if (grad) {
-    if (z <= 8) launch_grad<8>(hs, nh, label, B, z, tau, g, st);
-    else if (z <= 16) launch_grad<16>(hs, nh, label, B, z, tau, g, st);
-    else if (z <= 32) launch_grad<32>(hs, nh, label, B, z, tau, g, st);
-    else launch_grad<64>(hs, nh, label, B, z, tau, g, st);
-    RETURN_IF_ERROR();
-  }
   return 0;
 }
 
@@ -332,17 +257,7 @@ int snn_fwd(const float* mu, const int* label, int B, int z, float tau, int ps,
   hs.h[0] = half_of(mu, nullptr, ps ? 1 : 0, scratch, B, z);
   hs.h[0].loss = loss;
   hs.h[1] = hs.h[0];
-  return run(hs, 1, label, B, z, tau, false, nullptr, (cudaStream_t)stream);
-}
-
-// K2b. dmu [B, z] = g[0] * dSNN/dmu, with g a device scalar.
-int snn_bwd(const float* mu, const int* label, const float* g, int B, int z,
-            float tau, int ps, float* dmu, float* scratch, void* stream) {
-  Halves hs;
-  hs.h[0] = half_of(mu, nullptr, ps ? 1 : 0, scratch, B, z);
-  hs.h[0].dmu = dmu;
-  hs.h[1] = hs.h[0];
-  return run(hs, 1, label, B, z, tau, true, g, (cudaStream_t)stream);
+  return run(hs, 1, label, B, z, tau, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -199,17 +199,16 @@ def style_batch(x: torch.Tensor, style_idx: torch.Tensor, draws: torch.Tensor,
     apply the reference's /255 (run_styledmnist_downstream_expr.py:80).
 
     The samples whose style K3 expresses go through ``style_batch_kernel``,
-    one call per severity group (a CUDA batch launches the kernel or
-    raises); zigzag and canny are torch ops. ``draws`` [B, 2] holds each
-    sample's zigzag draws (r0, dr), from ``zigzag_draws``."""
-    x = x.to(torch.float32)
+    one call per severity group over the whole batch, writing their rows of
+    the output in place (code -1 marks the other rows, which K3 leaves); a
+    CUDA batch launches the kernel or raises. Zigzag and canny are torch
+    ops. ``draws`` [B, 2] holds each sample's zigzag draws (r0, dr), from
+    ``zigzag_draws``."""
+    x = x.to(torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     routed, luts = _k3_plan(styles, x.device)
     for severity, lut in luts:
-        codes = lut[style_idx.long()]
-        sel = torch.nonzero(codes >= 0).flatten()
-        if sel.numel():
-            out[sel] = style_batch_kernel(x[sel], codes[sel], severity)
+        style_batch_kernel(x, lut[style_idx.long()], severity, out=out)
     for code, (name, severity) in enumerate(styles):
         if code in routed:
             continue

@@ -10,8 +10,8 @@ Counterpart of ``clearvae_tpu/ops/pallas/fused_loss.py``. CUDA kernels in
   them with the closed-form KL gradients in one elementwise launch.
 - ``snn_fwd`` (K2f, for ``_fwd_kernel``; ``fused_loss.cu``): the loss of one
   half, no gradient.
-- ``snn_bwd`` (K2b, for ``_bwd_kernel``; ``fused_loss.cu``): g * dSNN/dmu of
-  one half.
+- ``snn_bwd`` (K2b, for ``_bwd_kernel``; ``clear_latent.cu``): g * dSNN/dmu
+  of one half, K1's kernel in its one-half mode, one cooperative launch.
 
 Each has a plain PyTorch twin here (``*_plain``) that repeats its arithmetic,
 masking constants included. A wrapper launches its kernel for a CUDA tensor
@@ -141,11 +141,11 @@ _SIGNATURES = {
         "clear_latent_config": [_I, _I, ctypes.POINTER(_I)],
         "clear_latent_fwdgrad": [_P] * 5 + [_I, _I, _F, _I] + [_P] * 6,
         "clear_latent_bwd": [_P] * 7 + [_I, _I] + [_P] * 5,
+        "snn_bwd": [_P] * 3 + [_I, _I, _F, _I] + [_P] * 4,
     },
     "fused_loss": {
         "fused_loss_scratch_floats": [_I, _I],
         "snn_fwd": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
-        "snn_bwd": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
     },
 }
 _fns: dict = {}     # name -> typed ctypes function, resolved at first use
@@ -267,18 +267,24 @@ def snn_fwd(mu: Tensor, label: Tensor, temperature: float, ps: bool) -> Tensor:
 
 def snn_bwd(mu: Tensor, label: Tensor, g: Tensor, temperature: float,
             ps: bool) -> Tensor:
-    """K2b: g * dSNN/dmu of one half; ``g`` is a 0-d tensor on mu's device."""
+    """K2b: g * dSNN/dmu of one half; ``g`` is a 0-d tensor on mu's device,
+    read there by the kernel. On a card, one launch; the output and the
+    kernel's scratch are views of one buffer."""
     b, z = _check_inputs(label, mu)
     if mu.device.type == "cpu":
         return snn_bwd_plain(mu.detach(), label, g, temperature, ps)
-    m, lbl = _f32(mu), label.to(torch.int32).contiguous()
-    gg = _f32(g.reshape(1))
-    dmu = torch.empty((b, z), dtype=torch.float32, device=mu.device)
-    scratch = _scratch(1, b, z, mu.device)
+    dev = mu.device
+    m, gg = _f32(mu), _f32(g.reshape(1))
+    lbl = label.to(device=dev, dtype=torch.int64).contiguous()
+    # one buffer: [partial sums: ceil(B/32) CTAs x 3 doubles |
+    #  exchange: 3 x round_up(B, 4) | dmu]
+    sizes = [6 * -(-b // 32), 3 * -(-b // 4) * 4, b * z]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    part, ex, dmu = buf.split(sizes)
     _run("snn_bwd", m.data_ptr(), lbl.data_ptr(), gg.data_ptr(), b, z,
-         float(temperature), int(bool(ps)), dmu.data_ptr(), scratch.data_ptr(),
-         _stream(mu.device))
-    return dmu
+         float(temperature), int(bool(ps)), dmu.data_ptr(), ex.data_ptr(),
+         part.data_ptr(), _stream(dev))
+    return dmu.view(b, z)
 
 
 # ---------------------------------------------------------------------------

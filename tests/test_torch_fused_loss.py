@@ -123,6 +123,17 @@ def test_singleton_rows_and_fallback():
     np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
 
 
+@pytest.mark.parametrize("ps", [True, False])
+def test_snn_bwd_takes_int64_and_int32_labels(ps):
+    (mu, *_), lbl = _latents(64, 8, 21)
+    g = torch.tensor(-0.8)
+    a = FL.snn_bwd(torch.as_tensor(mu), torch.as_tensor(lbl, dtype=torch.int64),
+                   g, 0.1, ps)
+    b = FL.snn_bwd(torch.as_tensor(mu), torch.as_tensor(lbl, dtype=torch.int32),
+                   g, 0.1, ps)
+    assert torch.equal(a, b)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     lbl = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="z <= 64"):

@@ -34,6 +34,23 @@ def test_tables_match_the_tpu_kernel():
 
 
 @pytest.mark.parametrize("severity", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("h", [17, 28, 64])
+def test_zoom_taps_rebuild_the_interp_matrix(h, severity):
+    """The kernel's sparse zoom (two taps an output index) holds every
+    nonzero of the dense matrix, with the same float32 weights."""
+    args = (h, K3._SCALE[severity - 1], (h - 1) / 2)
+    idx, w = K3._zoom_taps(*args)
+    dense = np.zeros((h, h), np.float32)
+    for t in range(2):
+        np.add.at(dense, (np.arange(h), idx[:, t]), w[:, t])
+    np.testing.assert_array_equal(dense, K3._interp_matrix(*args))
+    assert ((idx >= 0) & (idx < h)).all()
+    table = K3._taps(h, severity, "cpu").numpy()
+    np.testing.assert_array_equal(table[:, :2], idx)
+    np.testing.assert_array_equal(table[:, 2:].view(np.float32), w)
+
+
+@pytest.mark.parametrize("severity", [1, 2, 3, 4, 5])
 def test_style_plain_matches_pallas(batch, severity):
     ref = np.asarray(JK.pallas_style_batch(jnp.asarray(batch),
                                            jnp.asarray(CODES), severity))
@@ -43,14 +60,36 @@ def test_style_plain_matches_pallas(batch, severity):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("severity", [1, 2, 3, 4, 5])
+def test_style_plain_out_leaves_negative_code_rows(batch, severity):
+    """Rows of negative code keep ``out``'s prior contents bit for bit; the
+    others are styled as the Pallas kernel styles them."""
+    codes = np.where(np.arange(14) % 3 == 1, -1, CODES).astype(np.int32)
+    prior = np.random.RandomState(severity).rand(14, 28, 28).astype(np.float32)
+    out = torch.as_tensor(prior.copy())
+    got = K3.style_plain(torch.as_tensor(batch), torch.as_tensor(codes),
+                         severity, out=out)
+    assert got is out
+    mine = codes >= 0
+    assert np.array_equal(out.numpy()[~mine], prior[~mine])
+    ref = np.asarray(JK.pallas_style_batch(jnp.asarray(batch),
+                                           jnp.asarray(CODES), severity))
+    np.testing.assert_allclose(out.numpy()[mine], ref[mine], atol=1e-3,
+                               rtol=0)
+
+
 def test_wrapper_takes_the_twin_on_cpu_and_checks_inputs(batch):
     K3.reset_launches()
     x, c = torch.as_tensor(batch), torch.as_tensor(CODES)
     assert torch.equal(K3.style_batch_kernel(x, c, 5), K3.style_plain(x, c, 5))
+    out = torch.zeros_like(x)
+    assert K3.style_batch_kernel(x, c, 5, out=out) is out
+    assert torch.equal(out, K3.style_plain(x, c, 5))
     assert K3.LAUNCHES["style"] == 0
     for bad in ((x.double(), c, 5), (x[:, :, :27].contiguous(), c, 5),
                 (x.transpose(1, 2), c, 5), (x, c.long(), 5), (x, c[:3], 5),
-                (x, c, 0), (x, c, 6)):
+                (x, c, 0), (x, c, 6), (x, c, 5, x), (x, c, 5, out[:3]),
+                (x, c, 5, out.double()), (x, c, 5, out.transpose(1, 2))):
         with pytest.raises(ValueError):
             K3.style_batch_kernel(*bad)
 
@@ -66,12 +105,22 @@ def _jax_styled(styles, imgs, style_idx, seed):
     TC.EXPERIMENT_STYLES,
     (("zigzag", None), ("contrast", None), ("scale", 5), ("inverse", None),
      ("quantize", 2), ("brightness", 3), ("stripe", None))])
-def test_style_batch_routes_k3_and_matches_jax(batch, styles):
+def test_style_batch_routes_k3_and_matches_jax(batch, styles, monkeypatch):
     style_idx = np.arange(len(batch), dtype=np.int32) % len(styles)
     ref = _jax_styled(styles, batch, style_idx, 4)
     draws = torch.stack(TC.zigzag_draws(4, torch.arange(len(batch))), 1)
+    calls = []
+
+    def counting(x, code, severity, out=None):
+        calls.append((tuple(x.shape), severity, out is not None))
+        return K3.style_batch_kernel(x, code, severity, out=out)
+
+    monkeypatch.setattr(TC, "style_batch_kernel", counting)
     got = TC.style_batch(torch.as_tensor(batch), torch.as_tensor(style_idx),
                          draws, styles)
+    # one K3 call per severity group, each over the whole batch, in place
+    groups = TC.k3_groups(styles)
+    assert calls == [(batch.shape, sev, True) for sev in groups]
     zig = np.asarray([styles[i][0] == "zigzag" for i in style_idx])
     np.testing.assert_allclose(got.numpy()[~zig], ref[~zig], atol=1e-5, rtol=0)
     np.testing.assert_allclose(got.numpy()[zig], ref[zig], atol=2e-5, rtol=0)
