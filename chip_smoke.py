@@ -13,9 +13,9 @@ Phases, each fatal on failure:
                 K2f, K2b: values and autograd gradients at every (B, z) of
                 SHAPES (each of K1's template instances, its column-tile
                 ring, singleton-label rows), ps on and off; K1's backward
-                with a non-unit cotangent; two K1 calls and two K2b calls
-                bit-identical; K1 one launch a call each way and K2b one
-                launch a call (profiler). Timed at B = 128 and 2048 with
+                with a non-unit cotangent; two K1, K2f and K2b calls
+                bit-identical; K1 one launch a call each way, K2f and K2b
+                one launch a call (profiler). Timed at B = 128 and 2048 with
                 CUDA events and, per call, the profiler's device time. The
                 styler K3: all seven codes × severities 1–5 at B = 128, 100
                 and 512 (atol 1e-3 on the 0..255 scale), and rows of
@@ -57,7 +57,24 @@ Phases, each fatal on failure:
                 train step is profiled: K3's and styling's share of it, and
                 styling's kernels and host syncs a batch.
 
-Phases run in the order 1, 2, 3, 5, 4 (phase 5 trains on phase 3's data).
+6. mig        — the Styled-MNIST MIG/ELBO sweep through its entry point,
+                ``mig_expr.main`` at the flagship widths (z = 16, batch 128,
+                τ = 0.1, α = 100, β = 1/8) with ``--mig_backend auto``: all
+                eight zoo entries (clear-ps, clear-neg, bvae, clear-tc, two
+                clear-mim, mlvae, gvae) fit, validate and test on
+                materialized data (K3 in ``materialize``). Depth is cut
+                (12,000 synthetic digits: 8,000 / 2,000 / 2,000; 1 epoch).
+                The CSV must hold the eight rows in the JAX order, every
+                value finite; "auto" must resolve to the native C++ MIG
+                (its g++ build is a failure here, not a fallback); native
+                and numpy MIG must agree on the test latents of one entry
+                (rtol 1e-3, atol 1e-3); K3's launches must equal what
+                materializing the three splits takes, and K1/K2f/K2b none
+                (the zoo is unfused). A second call of the same command
+                must train nothing and rewrite the same CSV.
+
+Phases run in the order 1, 2, 3, 5, 4, 6 (phase 5 trains on phase 3's
+data).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -95,7 +112,7 @@ TIMED = [(128, 8), (2048, 8)]       # B=128, z=8 is the main path's shape
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
 SOURCE = {"clear_latent_fwdgrad": "clearvae_torch/csrc/clear_latent.cu",
           "clear_latent_bwd": "clearvae_torch/csrc/clear_latent.cu",
-          "snn_fwd": "clearvae_torch/csrc/fused_loss.cu",
+          "snn_fwd": "clearvae_torch/csrc/clear_latent.cu",
           "snn_bwd": "clearvae_torch/csrc/clear_latent.cu"}
 REPLACES = {
     "clear_latent_fwdgrad": "clearvae_tpu/ops/pallas/fused_loss.py:249",
@@ -123,6 +140,13 @@ ADV_COMMON = dict(beta=1 / 8, vae_lr=5e-4, z_dim=16, alpha=100,
                   temperature=0.1, seed=0, verbose_period=1,
                   hyperparameter={"fused": True}, device="cuda")
 ADV_STEPS = 126
+MIG_ARGS = ["--n_total", "12000", "--epochs", "1", "--batch_size", "128",
+            "--z_dim", "16", "--temperature", "0.1", "--alpha", "100",
+            "--betas", "0.125", "--seed", "0", "--mig_backend", "auto",
+            "--device", "cuda"]
+MIG_ZOO = ["clear-ps", "clear-neg", "bvae", "clear-tc", "clear-mim (L1OutUB)",
+           "clear-mim (CLUB-S)", "mlvae", "gvae"]
+MIG_TOL = dict(rtol=1e-3, atol=1e-3)   # tests/test_native.py's bars
 
 
 def fail(msg: str):
@@ -333,10 +357,16 @@ def phase_kernels():
             errs["clear_latent_fwdgrad"] = max(errs["clear_latent_fwdgrad"], *e)
             errs["clear_latent_bwd"] = max(errs["clear_latent_bwd"], *eb1)
             # K2f and K2b, direct and through the autograd.Function
-            loss = FL.snn_fwd(mu_s, lbl, 0.1, ps)
-            errs["snn_fwd"] = max(errs["snn_fwd"], check_close(
-                f"K2f {tag}", loss, FL.snn_fwd_plain(mu_s, lbl, 0.1, ps),
-                **VAL_TOL))
+            k2f = lambda: FL.snn_fwd(mu_s, lbl, 0.1, ps)  # noqa: E731
+            loss = k2f()
+            ef = check_close(f"K2f {tag}", loss,
+                             FL.snn_fwd_plain(mu_s, lbl, 0.1, ps), **VAL_TOL)
+            errs["snn_fwd"] = max(errs["snn_fwd"], ef)
+            if not torch.equal(k2f(), loss):
+                fail(f"K2f {tag}: two calls on the same inputs differ")
+            n_k = kernels_per_call(k2f)
+            if n_k != 1:
+                fail(f"K2f {tag}: {n_k} kernels a call, not one")
             g = torch.tensor(1.7, device=dev)
             rg = FL.snn_bwd_plain(mu_s, lbl, g, 0.1, ps)
             k2b = lambda: FL.snn_bwd(mu_s, lbl, g, 0.1, ps)  # noqa: E731
@@ -357,7 +387,7 @@ def phase_kernels():
             errs["snn_bwd"] = max(errs["snn_bwd"], *eb)
             print(f"[kernels] {tag}: K1 {max(e):.2e} (bwd {max(eb1):.2e}; one "
                   f"launch each way, repeat bit-identical; grid {grid})  K2f "
-                  f"{errs['snn_fwd']:.2e}  K2b {max(eb):.2e} (one launch, "
+                  f"{ef:.2e}  K2b {max(eb):.2e} (K2f and K2b: one launch, "
                   f"repeat bit-identical) (max abs err)")
     times = {}
     for b, z in TIMED:
@@ -588,8 +618,8 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
     read: wall ms per step over n steps without the profiler, device-busy
     ms per step from torch.profiler over n more, the idle share of the
     unprofiled wall, kernels per step, the fused-loss kernels' (K1 forward
-    and backward, named clear_latent_*; K2f/K2b, named fused_loss_*) device
-    ms and share, and the top kernels."""
+    and backward, K2f and K2b, all named clear_latent_*) device ms and
+    share, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     data, labels = trainer._device_data(train_ds)
@@ -612,7 +642,7 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
         fail("the profiler recorded no device activity")
     busy_ms = sum(by_name.values()) / 1e3 / n
     fused = sum(v for k, v in by_name.items()
-                if "fused_loss_" in k or "clear_latent_" in k) / 1e3 / n
+                if "clear_latent_" in k) / 1e3 / n
     print(f"{tag} train step (B={bs}): wall {wall_ms:.3f} ms "
           f"({prof_wall_ms:.3f} ms under the profiler), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
@@ -932,6 +962,124 @@ def phase_downstream(gpu, here):
     return {**other, "style_batch": launches}
 
 
+def _run_mig_sweep(out_dir):
+    """One ``mig_expr.main`` call with its fits, evaluations and MIG calls
+    recorded; returns (recorder, wall s, K3 launches, fused-loss launches,
+    the CSV's bytes, start time)."""
+    from clearvae_torch.experiments import mig_expr as RUN
+    from clearvae_torch.ops import metrics as MT
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.train import trainers as TR
+
+    rec = _Recorder()
+    rec.wrap(TR.TrainerCore, "fit", "fit")
+    rec.wrap(TR.VAETrainerBase, "evaluate", "evaluate")
+    rec.wrap(MT, "mutual_info_gap", "mig")
+    K3.reset_launches()
+    FL.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        RUN.main(MIG_ARGS + ["--out", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    wall = time.perf_counter() - t0
+    path = RUN.sweep_path(RUN.get_args(MIG_ARGS + ["--out", out_dir]))
+    with open(path, "rb") as f:
+        data = f.read()
+    return rec, wall, K3.LAUNCHES["style"], dict(FL.LAUNCHES), data, t0
+
+
+def phase_mig(gpu, here):
+    """The MIG/ELBO sweep through its entry point, twice (see the module
+    docstring); returns {kernel: launches} of the first run."""
+    import csv
+    import io
+    import shutil
+
+    from clearvae_torch.native import bindings
+    from clearvae_torch.ops import metrics as MT
+
+    out_dir = os.path.join(here, ".runs", "chip_smoke_mig")
+    shutil.rmtree(out_dir, ignore_errors=True)   # the CSV is a resume manifest
+    if not bindings.available():
+        fail("the native MIG library did not build with g++")
+    print(f"[mig] native MIG library {os.path.basename(bindings.lib_path())}"
+          f" (g++ at first use); 'auto' resolves to "
+          f"{MT.resolve_backend('auto')}")
+    print(f"[mig] mig_expr.main {' '.join(MIG_ARGS)} (all eight zoo entries; "
+          f"cut: depth only — 12,000 synthetic digits, 8,000/2,000/2,000, "
+          f"1 epoch)")
+    rec, wall, k3, other, data, start = _run_mig_sweep(out_dir)
+    trainers = [c["args"]["self"] for c in rec.calls["fit"]]
+    if len(trainers) != len(MIG_ZOO):
+        fail(f"the sweep fit {len(trainers)} trainers, not {len(MIG_ZOO)}")
+    backends = {t.mig_backend for t in trainers}
+    if backends != {"native"}:
+        fail(f"--mig_backend auto resolved to {backends}, not native")
+    fit = rec.calls["fit"][0]["args"]
+    splits = [fit["train_ds"], fit["valid_ds"],
+              rec.calls["evaluate"][-1]["args"]["ds"]]
+    want = sum(k3_launches_expected(d.styles, chunk_batches(len(d), 512))
+               for d in splits)
+    if k3 != want:
+        fail(f"K3 launched {k3} times in the sweep; materializing its three "
+             f"splits ({[len(d) for d in splits]} images) takes {want}")
+    if any(other.values()):
+        fail(f"the unfused sweep launched fused-loss kernels: {other}")
+    rows = list(csv.reader(io.StringIO(data.decode())))
+    if rows[0] != ["model", "beta", "mig", "elbo"] or \
+            [r[0] for r in rows[1:]] != MIG_ZOO:
+        fail(f"the sweep CSV is malformed: {rows}")
+    vals = [[float(v) for v in r[1:]] for r in rows[1:]]
+    if not all(math.isfinite(v) for r in vals for v in r) or \
+            any(r[0] != 0.125 for r in vals):
+        fail(f"the sweep CSV holds a non-finite value or another beta: {rows}")
+    starts = [c["t0"] for c in rec.calls["fit"]] + [start + wall]
+    for name, a, b, r, c in zip(MIG_ZOO, starts, starts[1:], vals,
+                                rec.calls["fit"]):
+        print(f"[mig] {name}: {b - a:.2f} s in all (fit {c['s']:.2f} s with "
+              f"its validation); test MIG {r[1]:.4f}, ELBO (recon) {r[2]:.3f}")
+    print(f"[mig] seconds: whole sweep {wall:.2f}; fits {rec.seconds('fit'):.2f}"
+          f" (validation included); evaluations {rec.seconds('evaluate'):.2f} "
+          f"({len(rec.calls['evaluate'])} calls, MIG in them "
+          f"{rec.seconds('mig'):.2f}); K3 launches {k3} (expected {want}); "
+          f"{other}; {gpu}")
+    # native against numpy (and torch, timed) on the last entry's test latents
+    m_args = rec.calls["mig"][-1]["args"]
+    lat = (m_args["label"], m_args["latent_c"], m_args["latent_s"])
+    label = MT._host(lat[0]).ravel().astype(np.int64)
+    for i, half in ((1, "z_c"), (2, "z_s")):
+        x = MT._host(lat[i])
+        nat = MT.mutual_info_classif_native(x, label)
+        ref = MT.mutual_info_classif_np(x, label)
+        if not np.allclose(nat, ref, **MIG_TOL):
+            fail(f"native and numpy MI of {half} disagree: {nat} vs {ref}")
+    mig_s = {}
+    for backend in ("native", "numpy", "torch") * 2:       # second: warm
+        t1 = time.perf_counter()
+        val = MT.mutual_info_gap(*lat, backend=backend)
+        torch.cuda.synchronize()
+        mig_s.setdefault(backend, [val]).append(time.perf_counter() - t1)
+    if not math.isclose(mig_s["native"][0], mig_s["numpy"][0], rel_tol=1e-3,
+                        abs_tol=1e-3):
+        fail(f"native MIG {mig_s['native'][0]} vs numpy {mig_s['numpy'][0]}")
+    print(f"[mig] MIG of {len(label)} test latents (first/second call): " +
+          ", ".join(f"{b} {v[0]:.6f} in {v[1]:.4f}/{v[2]:.4f} s"
+                    for b, v in mig_s.items()))
+    # the same command again: every cell is in the CSV, so nothing trains
+    rec2, wall2, k3_2, other2, data2, _ = _run_mig_sweep(out_dir)
+    if rec2.calls.get("fit") or k3_2 or any(other2.values()):
+        fail(f"the resumed sweep trained {len(rec2.calls.get('fit', []))} "
+             f"cells, K3 {k3_2}, {other2}")
+    if data2 != data:
+        fail("the resumed sweep rewrote a different CSV")
+    print(f"[mig] resumed call: {wall2:.2f} s, no cell trained, the same CSV "
+          f"({len(data)} bytes)")
+    return {**other, "style_batch": k3}
+
+
 def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
@@ -1057,8 +1205,9 @@ def main():
     launches, (train_ds, valid_ds) = phase_main(gpu)
     adv = phase_adversarial(gpu, train_ds, valid_ds)
     down = phase_downstream(gpu, here)
+    mig = phase_mig(gpu, here)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
-                      "downstream": down[name]}
+                      "downstream": down[name], "mig": mig[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and

@@ -1,6 +1,7 @@
 // K1, the fused CLEAR latent loss, for Hopper (sm_90a): one cooperative
 // launch forward, one elementwise launch backward, fp32 on the CUDA cores;
-// and K2b, the SNN gradient of one half, as a one-half mode of K1's kernel.
+// and K2f and K2b, the SNN loss and the SNN gradient of one half, as the
+// one-half modes of K1's kernel.
 //
 // Replaces, in clearvae_tpu/ops/pallas/fused_loss.py:
 //   clear_latent_fwdgrad <- _clear_fwdgrad_kernel (K1, pallas_call at :296):
@@ -8,6 +9,8 @@
 //                           unit-cotangent SNN gradients of both halves;
 //   clear_latent_bwd     <- _fused_clear_bwd (:314), the combine of those
 //                           gradients with the closed-form KL gradients;
+//   snn_fwd              <- _fwd_kernel (K2f, pallas_call at :169):
+//                           the SNN or PS-SNN loss of one half;
 //   snn_bwd              <- _bwd_kernel (K2b, pallas_call at :187):
 //                           g * dSNN/dmu of one half, g a device scalar.
 //
@@ -63,7 +66,7 @@
 // bit-identical. T = min(ceil(B / 32), co-resident CTAs / 2), from the
 // occupancy of the (B, z) shape's shared memory, computed once per shape.
 //
-// K2b is the same kernel with Params::single set, launched on grid (T, 1):
+// K2b is the same kernel with Params::single = 1, launched on grid (T, 1):
 // one half (mu, SNN or PS-SNN by ps), no KL sums and no loss written, and
 // the gradient of pass B multiplied by the cotangent g, read on the device.
 // A flag and not a template parameter: the branches it adds are uniform
@@ -71,6 +74,15 @@
 // the eight instances that dominate this file's build time. T, TJ and the
 // column-tile ring are K1's (configure), so K2b takes every (B, z) that K1
 // takes, and two calls are bit-identical for the same reason.
+//
+// K2f is K2b's launch with Params::single = 2, the loss only: pass A as
+// above, without the exchange arrays (nothing reads them), then the grid
+// barrier, and CTA 0's warp 0 reduces the T partial slots in the same fixed
+// order as K1 and writes loss / max(n_finite, 1) to out4[0]; every other
+// warp returns at the barrier, and none runs pass B. Every CTA reaches the
+// one grid.sync() (none returns before it), so the barrier is K1's. A last-CTA-reduces ticket would drop
+// the cooperative launch but needs a counter zeroed before each call (a
+// second launch) or kept across calls (unsafe for two streams).
 //
 // The tensor cores are not used: S = mu_n mu_n^T has contraction depth z = 8,
 // a TF32 mma misses rtol 2e-5 without a 3xTF32 split, and it would save only
@@ -118,10 +130,12 @@ struct Params {
   float* out4;              // kl_c, kl_s, snn(mu_c), snn or ps-snn(mu_s)
   float* ex;                // [halves][3][Bp]: lse_all, lse_pos, has_pos
   double* part;             // [halves][T][3]: positive rows, row losses, KL
-  const float* g;           // K2b: the cotangent [1]; K1: null
+  const float* g;           // K2b: the cotangent [1]; K1, K2f: null
   float tau;
   int B, Bp, z, T, TJ, ntiles, ps;
-  int single;               // K2b: one half (mu[0]), no KL, scaled by *g
+  // one half (mu[0]), no KL: 1 = K2b, the gradient scaled by *g; 2 = K2f,
+  // the loss only, to out4[0]
+  int single;
 };
 
 __host__ __device__ inline int round_up(int a, int m) {
@@ -459,9 +473,11 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
       }
       const float la = finish_lse(m_all, s_all);
       const float lp = finish_lse(m_pos, s_pos);
-      h.ex[i] = la;
-      h.ex[Bp + i] = lp;
-      h.ex[2 * Bp + i] = any_pos ? 1.f : 0.f;
+      if (p.single != 2) {
+        h.ex[i] = la;
+        h.ex[Bp + i] = lp;
+        h.ex[2 * Bp + i] = any_pos ? 1.f : 0.f;
+      }
       if (any_pos) {
         cnt += 1.0;
         lsum += (double)(-lp + la);
@@ -496,6 +512,8 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
   }
 
   cg::this_grid().sync();
+  // K2f: only CTA 0's warp 0 is left, to reduce and write the loss
+  if (p.single == 2 && (blockIdx.x != 0 || w != 0)) return;
 
   // ---- pass B: the half's totals, then the gradient of the CTA's rows
   double* const tot = red + SL * 3;
@@ -516,10 +534,10 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
     }
     if (lane == 0) {
       tot[0] = c;
-      if (blockIdx.x == 0 && !p.single) {
+      if (blockIdx.x == 0 && p.single != 1) {
         const float nf = (float)fmax(c, 1.0);
-        p.out4[half] = (float)(-0.5 * k) / (float)B;
-        p.out4[2 + half] = (float)l / nf;
+        if (!p.single) p.out4[half] = (float)(-0.5 * k) / (float)B;
+        p.out4[p.single ? 0 : 2 + half] = (float)l / nf;
       }
     }
   } else {  // the other warps stage the exchange arrays meanwhile
@@ -529,6 +547,7 @@ __global__ void __launch_bounds__(kRows * slices_for(ZM), 1)
       sx[2 * Bp + e] = __ldcg(h.ex + 2 * Bp + e);
     }
   }
+  if (p.single == 2) return;  // K2f: the loss is written; no pass B
   __syncthreads();
   const float denom = p.tau * (float)fmax(tot[0], 1.0);
   const float gv = p.single ? *p.g : 1.f;  // K1's unit cotangent: exact
@@ -798,6 +817,25 @@ int snn_bwd(const float* mu, const long long* label, const float* g, int B,
   p.part = part;
   p.g = g;
   p.single = 1;
+  return launch(p, c, 1, (cudaStream_t)stream);
+}
+
+// K2f, one cooperative launch on grid (T, 1): out[0] = the SNN or (ps)
+// PS-SNN loss of mu. part holds 3 * ceil(B / 32) doubles of scratch; the
+// caller allocates it.
+int snn_fwd(const float* mu, const long long* label, int B, int z, float tau,
+            int ps, float* out, double* part, void* stream) {
+  if (B < 1 || z < 1 || z > 64 || !(tau > 0.f))
+    return (int)cudaErrorInvalidValue;
+  Config c;
+  const int err = configure(B, z, &c);
+  if (err != 0) return err;
+  Params p = base_params(B, z, tau, ps, c);
+  p.mu[0] = p.mu[1] = mu;
+  p.label = label;
+  p.out4 = out;
+  p.part = part;
+  p.single = 2;
   return launch(p, c, 1, (cudaStream_t)stream);
 }
 

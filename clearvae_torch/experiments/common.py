@@ -1,16 +1,22 @@
 """Shared experiment plumbing (counterpart of
 ``clearvae_tpu/experiments/common.py``; reference
-run_styledmnist_downstream_expr.py:92-225). The MIG sweep helpers are not
-ported yet (ROADMAP Queue 1 item 14)."""
+run_styledmnist_downstream_expr.py:92-225): the downstream zoo runner and
+the β×model MIG/ELBO sweep."""
 
 from __future__ import annotations
 
+import csv
 import json
+import math
 import os
 
 import numpy as np
 
-from clearvae_torch.train.trainers import DownstreamMLPTrainer, SimpleCNNTrainer
+from clearvae_torch.train.trainers import (DownstreamMLPTrainer,
+                                           HierarchicalVAETrainer,
+                                           SimpleCNNTrainer)
+
+SWEEP_COLUMNS = ("model", "beta", "mig", "elbo")
 
 
 def experiment_helper(train_ds, valid_ds, test_ds, vae_trainer, epochs: int,
@@ -93,6 +99,86 @@ def filter_models(models: dict, names) -> dict:
                            f"available: {sorted(models)}")
         keep.update(matched)
     return {k: v for k, v in models.items() if k in keep}
+
+
+def make_mig_cell(epochs: int, train, valid, test, batch_size: int):
+    """The standard ``evaluate_cell`` of :func:`run_mig_sweep`: fit, then
+    (mig, elbo) of ``evaluate`` on the test split. Hierarchical (ML-VAE,
+    GVAE) trainers skip the evidence-accuracy pass: the sweep reads only
+    mig and elbo."""
+
+    def cell(name, get_trainer, beta):
+        trainer = get_trainer(beta)
+        trainer.fit(epochs, train, valid, batch_size=batch_size)
+        if isinstance(trainer, HierarchicalVAETrainer):
+            return trainer.evaluate(test, batch_size=batch_size,
+                                    with_evidence_acc=False)
+        return trainer.evaluate(test, batch_size=batch_size)
+
+    return cell
+
+
+def _csv_field(v) -> str:
+    """A value as pandas' ``to_csv`` writes it: floats by their shortest
+    repr, NaN empty."""
+    if isinstance(v, (float, np.floating)):
+        return "" if math.isnan(v) else repr(float(v))
+    return str(v)
+
+
+def _read_sweep(fpath: str) -> list[dict]:
+    """The rows of a sweep CSV, each float read exactly (empty is NaN)."""
+    with open(fpath, newline="") as f:
+        return [{"model": r["model"],
+                 **{k: float(r[k]) if r[k] else math.nan
+                    for k in SWEEP_COLUMNS[1:]}}
+                for r in csv.DictReader(f)]
+
+
+def _write_sweep(rows: list[dict], fpath: str) -> None:
+    """The sweep's CSV, written to a temporary file and renamed over the
+    old one, so a crash mid-write leaves the resume manifest whole."""
+    os.makedirs(os.path.dirname(os.path.abspath(fpath)), exist_ok=True)
+    tmp = fpath + ".tmp"
+    with open(tmp, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(SWEEP_COLUMNS)
+        w.writerows([_csv_field(r[k]) for k in SWEEP_COLUMNS] for r in rows)
+    os.replace(tmp, fpath)
+
+
+def run_mig_sweep(models: dict, betas, fpath: str, evaluate_cell) -> list[dict]:
+    """β×model MIG/ELBO sweep whose CSV (columns model, beta, mig, elbo) is
+    both the output and the resume manifest: cells already in it, keyed by
+    (model, round(beta, 10)), are skipped, and the CSV is rewritten after
+    every new cell (the reference writes once at the end,
+    run_mig_expr_mnist.py:163-198). ``evaluate_cell(name, get_trainer,
+    beta)`` trains the model and returns ``(mig, elbo)``. Returns the rows.
+
+    The CSV is what the JAX package's pandas version writes, byte for byte,
+    except in the rows of a resumed run: pandas' default ``read_csv``
+    parser is not round-trip exact, so the JAX sweep writes about a quarter
+    of the resumed values back one ulp off. Here they are read exactly, and
+    a resumed run rewrites the same bytes."""
+    rows, done = [], set()
+    if os.path.exists(fpath):
+        rows = _read_sweep(fpath)
+        done = {(r["model"], round(r["beta"], 10)) for r in rows}
+        if rows:
+            print(f"resuming: {len(rows)} finished cells in {fpath}")
+    for beta in betas:
+        print(f"==== BETA {beta} ====")
+        for name, get_trainer in models.items():
+            if (name, round(float(beta), 10)) in done:
+                print(f"---- {name} (cached) ----")
+                continue
+            print(f"---- {name} ----")
+            mig, elbo = evaluate_cell(name, get_trainer, beta)
+            rows.append({"model": name, "beta": beta, "mig": mig,
+                         "elbo": elbo})
+            _write_sweep(rows, fpath)
+    _write_sweep(rows, fpath)
+    return rows
 
 
 def save_results(results: dict, fpath: str):

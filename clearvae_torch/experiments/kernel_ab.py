@@ -1,6 +1,6 @@
-"""Paired card timings of K3, K2b and the styling of one batch, for checkouts
-of this package, so that two trees (a parent and a change) are compared in
-one call on one card, in turns:
+"""Paired card timings of K3, K2f, K2b and the styling of one batch, for
+checkouts of this package, so that two trees (a parent and a change) are
+compared in one call on one card, in turns:
 
     python3 clearvae_torch/experiments/kernel_ab.py --root PARENT --root . \\
         --root . --root PARENT
@@ -11,7 +11,8 @@ checkout's build directory, and prints one JSON line:
 
 - ``style_batch`` (K3) at B = 128 and 512 on the codes the downstream path
   sends it (identity, stripe, brightness, scale), severity 5;
-- ``snn_bwd`` (K2b) at (B, z) = (128, 8) and (2048, 8), PS-SNN;
+- ``snn_fwd`` (K2f) and ``snn_bwd`` (K2b) at (B, z) = (128, 8) and
+  (2048, 8), PS-SNN;
 - ``styling``: one ``corruptions.style_batch`` call on a B = 128 batch of
   the six ``EXPERIMENT_STYLES``;
 
@@ -150,6 +151,8 @@ def measure(root: str, save: str | None = None) -> dict:
         mu = torch.randn(b, z, generator=gen).to(dev)
         lbl = torch.randint(0, 10, (b,), generator=gen).to(dev)
         one = torch.ones((), device=dev)
+        out[f"snn_fwd B={b} z={z}"] = _record(
+            lambda: FL.snn_fwd(mu, lbl, 0.1, True))
         out[f"snn_bwd B={b} z={z}"] = _record(
             lambda: FL.snn_bwd(mu, lbl, one, 0.1, True))
     b = 128

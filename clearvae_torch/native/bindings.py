@@ -1,0 +1,94 @@
+"""ctypes bindings of the port's host library, ``csrc/host_ops.cpp``
+(counterpart of ``clearvae_tpu/native/bindings.py``).
+
+The library is compiled with ``g++ -O3 -std=c++17 -shared -fPIC`` at first
+use into ``clearvae_torch/_build/`` (listed in ``.gitignore``), under a file
+name that carries a hash of the source, so an edited source is rebuilt and a
+built one reused. It is a host op, not a device kernel: where the build
+fails, :func:`available` is False and the MIG backend ``"auto"`` takes numpy,
+as in the JAX package. Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(_PKG, "csrc", "host_ops.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+_lib = None
+_tried = False
+
+
+def lib_path() -> str:
+    with open(SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libhost_ops-{digest}.so")
+
+
+def _build() -> str | None:
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], check=True,
+                       capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"# native host_ops build unavailable: {e}", file=sys.stderr)
+        return None
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib, _tried
+    if _lib is None and not _tried:
+        _tried = True
+        path = _build()
+        if path:
+            lib = ctypes.CDLL(path)
+            lib.ksg_mi_cd.restype = ctypes.c_int
+            lib.ksg_mi_cd.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_double)]
+            _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    """Whether the host library is built (building it on the first call)."""
+    return _load() is not None
+
+
+def ksg_mi_cd_native(x: np.ndarray, y: np.ndarray,
+                     n_neighbors: int = 3) -> np.ndarray:
+    """Per-feature KSG MI of preprocessed float64 columns ``x`` [n, f]
+    against labels ``y`` [n]; raises if the library is not built."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native host_ops library is not built")
+    x = np.ascontiguousarray(x, np.float64)
+    y = np.ascontiguousarray(y, np.int64).ravel()
+    if x.ndim != 2 or y.shape != (x.shape[0],):
+        raise ValueError(f"ksg_mi_cd takes x [n, f] and y [n]; got "
+                         f"{x.shape} and {y.shape}")
+    n, f = x.shape
+    out = np.empty(f, np.float64)
+    rc = lib.ksg_mi_cd(x.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                       y.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                       n, f, n_neighbors,
+                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if rc != 0:
+        raise RuntimeError(f"ksg_mi_cd failed: rc={rc}")
+    return out

@@ -8,8 +8,9 @@ Counterpart of ``clearvae_tpu/ops/pallas/fused_loss.py``. CUDA kernels in
   unit-cotangent SNN gradients of both halves in one cooperative launch;
   its backward, ``clear_latent_bwd`` (for ``_fused_clear_bwd``), combines
   them with the closed-form KL gradients in one elementwise launch.
-- ``snn_fwd`` (K2f, for ``_fwd_kernel``; ``fused_loss.cu``): the loss of one
-  half, no gradient.
+- ``snn_fwd`` (K2f, for ``_fwd_kernel``; ``clear_latent.cu``): the loss of
+  one half, no gradient: K1's kernel in its loss-only one-half mode, one
+  cooperative launch that stops after pass A's reduction.
 - ``snn_bwd`` (K2b, for ``_bwd_kernel``; ``clear_latent.cu``): g * dSNN/dmu
   of one half, K1's kernel in its one-half mode, one cooperative launch.
 
@@ -141,11 +142,8 @@ _SIGNATURES = {
         "clear_latent_config": [_I, _I, ctypes.POINTER(_I)],
         "clear_latent_fwdgrad": [_P] * 5 + [_I, _I, _F, _I] + [_P] * 6,
         "clear_latent_bwd": [_P] * 7 + [_I, _I] + [_P] * 5,
+        "snn_fwd": [_P] * 2 + [_I, _I, _F, _I] + [_P] * 3,
         "snn_bwd": [_P] * 3 + [_I, _I, _F, _I] + [_P] * 4,
-    },
-    "fused_loss": {
-        "fused_loss_scratch_floats": [_I, _I],
-        "snn_fwd": [_P, _P, _I, _I, _F, _I, _P, _P, _P],
     },
 }
 _fns: dict = {}     # name -> typed ctypes function, resolved at first use
@@ -192,11 +190,6 @@ def _run(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[name] += 1
-
-
-def _scratch(n_halves: int, b: int, z: int, device) -> Tensor:
-    per_half = _fn("fused_loss_scratch_floats")(b, z)
-    return torch.empty(n_halves * per_half, dtype=torch.float32, device=device)
 
 
 def _stream(device) -> int:
@@ -253,15 +246,20 @@ def clear_latent_bwd(mu_c, lv_c, mu_s, lv_s, dsnn_c, dsnn_s, g):
 
 
 def snn_fwd(mu: Tensor, label: Tensor, temperature: float, ps: bool) -> Tensor:
-    """K2f: the SNN / PS-SNN loss of one half (0-d tensor)."""
+    """K2f: the SNN / PS-SNN loss of one half (0-d tensor). On a card, one
+    launch; the output and the kernel's scratch are views of one buffer."""
     b, z = _check_inputs(label, mu)
     if mu.device.type == "cpu":
         return snn_fwd_plain(mu.detach(), label, temperature, ps)
-    m, lbl = _f32(mu), label.to(torch.int32).contiguous()
-    out = torch.empty(1, dtype=torch.float32, device=mu.device)
-    scratch = _scratch(1, b, z, mu.device)
+    dev = mu.device
+    m = _f32(mu)
+    lbl = label.to(device=dev, dtype=torch.int64).contiguous()
+    # one buffer: [partial sums: ceil(B/32) CTAs x 3 doubles | loss]
+    sizes = [6 * -(-b // 32), 1]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    part, out = buf.split(sizes)
     _run("snn_fwd", m.data_ptr(), lbl.data_ptr(), b, z, float(temperature),
-         int(bool(ps)), out.data_ptr(), scratch.data_ptr(), _stream(mu.device))
+         int(bool(ps)), out.data_ptr(), part.data_ptr(), _stream(dev))
     return out[0]
 
 

@@ -9,10 +9,13 @@ then per column: radius = distance to the k-th same-class neighbour
 points (any class, self included) within that radius; samples of singleton
 classes dropped; MI = ψ(N) + mean ψ(k) − mean ψ(class_count) − mean ψ(m).
 
-Two backends: float64 numpy (``"numpy"``, also ``"auto"``), and float32
-torch on the device (``"torch"``, the counterpart of the JAX package's jnp
-backend: one [N, N] distance matrix per feature). The JAX package's native
-C++ backend is not ported.
+Three backends: float64 numpy (``"numpy"``); float64 C++ on the host
+(``"native"``, ``csrc/host_ops.cpp`` through ``native/bindings.py``, the
+counterpart of the JAX package's native backend, the same preprocessing and
+dither as numpy); and float32 torch on the device (``"torch"``, the
+counterpart of the JAX package's jnp backend: one [N, N] distance matrix per
+feature). ``"auto"`` is native where its library builds, else numpy, as in
+the JAX package's trainers.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from scipy.special import digamma as np_digamma
 
 from clearvae_torch import resolve_device
+from clearvae_torch.native import bindings
 
 
 def _mi_cd_numpy(c: np.ndarray, d: np.ndarray, n_neighbors: int) -> float:
@@ -63,20 +67,50 @@ def _mi_cd_numpy(c: np.ndarray, d: np.ndarray, n_neighbors: int) -> float:
     return max(0.0, float(mi))
 
 
-def mutual_info_classif_np(x: np.ndarray, y: np.ndarray, *,
-                           n_neighbors: int = 3, seed: int = 0) -> np.ndarray:
-    """Per-feature MI(x_col; y) with sklearn _estimate_mi preprocessing."""
+def _preprocess(x, seed: int) -> np.ndarray:
+    """sklearn _estimate_mi's preprocessing in float64: per-column std
+    scaling (no centering), then 1e-10-scale dither of numpy's ``seed``."""
     x = np.asarray(x, dtype=np.float64)
     if x.ndim == 1:
         x = x[:, None]
-    y = np.asarray(y).ravel()
     std = x.std(axis=0)
     x = x / np.where(std > 0, std, 1.0)
     rng = np.random.RandomState(seed)
     means = np.maximum(1, np.mean(np.abs(x), axis=0))
-    x = x + 1e-10 * means * rng.standard_normal(size=x.shape)
+    return x + 1e-10 * means * rng.standard_normal(size=x.shape)
+
+
+def mutual_info_classif_np(x: np.ndarray, y: np.ndarray, *,
+                           n_neighbors: int = 3, seed: int = 0) -> np.ndarray:
+    """Per-feature MI(x_col; y) with sklearn _estimate_mi preprocessing."""
+    x = _preprocess(x, seed)
+    y = np.asarray(y).ravel()
     return np.array([_mi_cd_numpy(x[:, j], y, n_neighbors)
                      for j in range(x.shape[1])])
+
+
+def mutual_info_classif_native(x: np.ndarray, y: np.ndarray, *,
+                               n_neighbors: int = 3,
+                               seed: int = 0) -> np.ndarray:
+    """Per-feature MI(x_col; y): the numpy backend's preprocessing, then the
+    C++ KSG loop. Raises where the host library does not build."""
+    return bindings.ksg_mi_cd_native(_preprocess(x, seed), np.asarray(y),
+                                     n_neighbors)
+
+
+BACKENDS = ("native", "numpy", "torch")
+
+
+def resolve_backend(backend: str) -> str:
+    """The MIG backend that ``backend`` names: ``"auto"`` is ``"native"``
+    where the host library builds, else ``"numpy"``
+    (``clearvae_tpu/train/trainers.py:285-288``)."""
+    if backend == "auto":
+        return "native" if bindings.available() else "numpy"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown MIG backend {backend!r}; the port has "
+                         f"{', '.join(('auto',) + BACKENDS)}")
+    return backend
 
 
 def _mi_cd_torch(x: torch.Tensor, y: torch.Tensor, n_neighbors: int,
@@ -141,23 +175,22 @@ def _host(a) -> np.ndarray:
 
 def mutual_info_gap(label, latent_c, latent_s, *, backend: str = "numpy",
                     n_classes: int | None = None) -> float:
-    """(mean MI(z_c, y) − mean MI(z_s, y)) / H(y). ``backend`` is
-    ``"numpy"`` (``"auto"`` too) or ``"torch"``, which runs on the latents'
-    device."""
+    """(mean MI(z_c, y) − mean MI(z_s, y)) / H(y). ``backend`` is one of
+    ``auto | native | numpy | torch``; torch runs on the latents' device."""
+    backend = resolve_backend(backend)
     label = _host(label).ravel().astype(np.int64)
     p = np.bincount(label) / len(label)
     p = p[p > 0]
     h = float(-(p * np.log(p)).sum())
-    if backend in ("numpy", "auto"):
-        mi_c = mutual_info_classif_np(_host(latent_c), label)
-        mi_s = mutual_info_classif_np(_host(latent_s), label)
-    elif backend == "torch":
+    if backend == "torch":
         nc = n_classes or int(label.max()) + 1
         mi_c = mutual_info_classif_torch(latent_c, label, n_classes=nc)
         mi_s = mutual_info_classif_torch(latent_s, label, n_classes=nc)
     else:
-        raise ValueError(f"unknown MIG backend {backend!r}; the port has "
-                         f"'numpy' and 'torch'")
+        mi = (mutual_info_classif_native if backend == "native"
+              else mutual_info_classif_np)
+        mi_c = mi(_host(latent_c), label)
+        mi_s = mi(_host(latent_s), label)
     return float((mi_c.mean() - mi_s.mean()) / h)
 
 

@@ -6,7 +6,8 @@ plus ``device`` (default ``cuda``). Each seeds its models' init with
 The CLEAR, CLEAR-TC and CLEAR-MIM factories also take ``hyperparameter``,
 keys added to the trainer's dict; ``{"fused": True}`` routes the latent
 losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
-of c_loss for CLEAR-TC and CLEAR-MIM).
+of c_loss for CLEAR-TC and CLEAR-MIM). ``trainer_from_config`` builds one
+of them from a typed ``config.ClearVAEConfig``.
 """
 
 from __future__ import annotations
@@ -15,17 +16,13 @@ import functools
 
 import torch
 
-from clearvae_torch.models.cnn import SimpleCNN
 from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mi_estimators import MI_ESTIMATORS
-from clearvae_torch.models.vae import VAE
+from clearvae_torch.registry import MODELS
 from clearvae_torch.train.trainers import (CLEARVAETrainer, ClearMIMVAETrainer,
                                            ClearTCVAETrainer,
                                            HierarchicalVAETrainer,
                                            SimpleCNNTrainer)
-
-MODELS = {"VAE": VAE, "SimpleCNNClassifier": SimpleCNN}
-
 
 def _seeded(seed: int, build):
     with torch.random.fork_rng(devices=[]):
@@ -127,3 +124,38 @@ def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
                     "mi_estimator_optim": _adam(mi_estimator_lr)},
         sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
         seed=seed, mig_backend=mig_backend, device=device)
+
+
+def trainer_from_config(cfg, device=None):
+    """A trainer from a typed ``ClearVAEConfig``
+    (``clearvae_tpu/train/factories.py:122-151``), dispatched on its
+    sections in the JAX order: ``model.group_mode`` → GVAE/ML-VAE, ``tc`` →
+    CLEAR-TC, ``mim`` → CLEAR-MIM, else plain CLEAR. Like the JAX function
+    it does not pass ``contrastive.fused`` on: the trainer is unfused."""
+    common = dict(
+        beta=cfg.anneal.beta, vae_lr=cfg.optim.lr,
+        z_dim=cfg.model.total_z_dim, alpha=cfg.contrastive.alpha,
+        temperature=cfg.contrastive.temperature,
+        vae_arch="VAE" if cfg.model.arch == "vae28" else "VAE64",
+        in_channel=cfg.model.in_channel, seed=cfg.train.seed,
+        verbose_period=cfg.train.verbose_period,
+        sim_fn=cfg.contrastive.sim_fn, device=device,
+    )
+    if cfg.model.group_mode:
+        for k in ("alpha", "temperature", "sim_fn"):
+            common.pop(k)
+        return get_hierarchical_vae_trainer(group_mode=cfg.model.group_mode,
+                                            n_classes=cfg.train.n_classes,
+                                            **common)
+    if cfg.tc is not None:
+        common.pop("sim_fn")
+        return get_cleartcvae_trainer(la=cfg.tc.la,
+                                      factor_cls_lr=cfg.tc.factor_cls_lr,
+                                      **common)
+    if cfg.mim is not None:
+        common.pop("sim_fn")
+        return get_clearmimvae_trainer(mi_estimator=cfg.mim.estimator,
+                                       la=cfg.mim.la,
+                                       mi_estimator_lr=cfg.mim.mi_estimator_lr,
+                                       **common)
+    return get_clearvae_trainer(ps=cfg.contrastive.ps, **common)

@@ -140,7 +140,7 @@ class VAETrainerBase(TrainerCore):
     def __init__(self, model, verbose_period: int = 5, seed: int = 0,
                  mig_backend: str = "auto", device=None):
         super().__init__(model, verbose_period, seed, device)
-        self.mig_backend = "numpy" if mig_backend == "auto" else mig_backend
+        self.mig_backend = MT.resolve_backend(mig_backend)
 
     def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
         mig, mse = self.evaluate(valid_ds, batch_size=batch_size,

@@ -143,3 +143,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="label"):
         FL.snn_fwd(torch.zeros(4, 8), torch.zeros(5, dtype=torch.int64), 0.1,
                    True)
+
+
+def test_wrappers_reach_only_clear_latent_cu():
+    """K1, K1's backward, K2f and K2b are one CUDA source's entry points;
+    the old four-pass source is gone."""
+    import os
+
+    from clearvae_torch.ops.kernels import _build
+
+    assert list(FL._SIGNATURES) == ["clear_latent"]
+    assert set(FL._SIGNATURES["clear_latent"]) >= set(FL.LAUNCHES)
+    assert not os.path.exists(os.path.join(_build.CSRC, "fused_loss.cu"))
+    assert "fused_loss" not in _build.sources()

@@ -22,6 +22,8 @@ import clearvae_torch.experiments.common
 import clearvae_torch.experiments.styledmnist_downstream
 import clearvae_torch.models.cnn, clearvae_torch.models.factor
 import clearvae_torch.models.mi_estimators, clearvae_torch.ops.group
+import clearvae_torch.registry, clearvae_torch.native.bindings
+import clearvae_torch.experiments.mig_expr
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
