@@ -73,8 +73,28 @@ Phases, each fatal on failure:
                 (the zoo is unfused). A second call of the same command
                 must train nothing and rewrite the same CSV.
 
-Phases run in the order 1, 2, 3, 5, 4, 6 (phase 5 trains on phase 3's
-data).
+7. graph      — the captured train step, ``fit(use_scan=True)``, against the
+                eager one on phase 3's data: the fused CLEAR, CLEAR-TC and
+                CLEAR-MIM (CLUB-S) trainers fit 2 epochs each way from the
+                same seed under ``cudnn.deterministic``: equal update counts,
+                histories and final state within phase 5's fused-vs-unfused
+                bars (the max abs difference printed); K1 forward = K1
+                backward = 126 on the graphed CLEAR fit and K2f = K2b = 126 on
+                each graphed TC/MIM fit, counted by replay (each fit's
+                counters zeroed just before and read after). A checkpoint
+                after epoch 0, restored into a fresh trainer, then
+                ``fit(start_epoch=1)`` graphed: the uninterrupted graphed
+                fit's epoch 1 within the same bars; ``InferenceSession.
+                from_checkpoint`` on the card: its shapes, and equal to
+                ``from_trainer`` (atol 1e-6). Then eager and graphed steps in
+                turns (eager, graphed, graphed, eager; 20 steps a turn): wall,
+                device busy, idle share, kernels a step, images/sec; the
+                fused-loss kernels counted by name in the device trace of 20
+                replays (K1: one forward and one backward kernel a step;
+                TC/MIM: K2f and K2b, two launches of the forward kernel).
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 6 (phases 5 and 7 train on phase
+3's data).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -771,6 +791,229 @@ def phase_adversarial(gpu, train_ds, valid_ds):
     return total
 
 
+def _graph_runs():
+    from clearvae_torch.train.factories import (get_clearmimvae_trainer,
+                                                get_cleartcvae_trainer,
+                                                get_clearvae_trainer)
+
+    return {"clear": (get_clearvae_trainer, dict(ps=True)),
+            "clear-tc": (get_cleartcvae_trainer,
+                         dict(la=1, factor_cls_lr=1e-4)),
+            "clear-mim (CLUB-S)": (get_clearmimvae_trainer,
+                                   dict(mi_estimator="CLUBSample", la=3,
+                                        mi_estimator_lr=2e-3))}
+
+
+def _graph_fit(factory, kw, train_ds, epochs, **fit_kw):
+    """(trainer, {kernel: launches}) of one fit, the counters zeroed just
+    before it and read just after."""
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+
+    trainer = factory(**ADV_COMMON, **kw)
+    FL.reset_launches()
+    K3.reset_launches()
+    trainer.fit(epochs, train_ds, batch_size=128, **fit_kw)
+    torch.cuda.synchronize()
+    return trainer, {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"]}
+
+
+def _same_training(tag, a, b, a_epochs=None):
+    """Fails unless trainer b's loss histories and final state are within
+    phase 5's fused-vs-unfused bars of a's (metrics rtol 1e-4, atol 1e-5;
+    the VAE's parameters max(1e-3·max|w|, 1.2e-3); the second player's
+    rtol 1e-4, atol 1e-5); returns the max abs difference over all of
+    them. ``a_epochs`` picks the epochs of a's history that b ran."""
+    hist_a = a.history if a_epochs is None else a.history[a_epochs]
+    if len(hist_a) != len(b.history):
+        fail(f"{tag}: {len(hist_a)} against {len(b.history)} epochs")
+    worst = 0.0
+    for e, (ha, hb) in enumerate(zip(hist_a, b.history)):
+        for k, v in ha.items():
+            worst = max(worst, check_close(
+                f"{tag}: epoch {e} {k}", torch.as_tensor(hb[k]),
+                torch.as_tensor(v), rtol=1e-4, atol=1e-5))
+    for m in a.MODULES:
+        sa, sb = getattr(a, m).state_dict(), getattr(b, m).state_dict()
+        for k, v in sa.items():
+            err = float((sb[k] - v).abs().max())
+            worst = max(worst, err)
+            bar = (max(1e-3 * float(v.abs().max()), 1.2e-3) if m == "model"
+                   else 1e-5 + 1e-4 * float(v.abs().max()))
+            if err > bar:
+                fail(f"{tag}: {m} {k} off by {err:.3e} (bar {bar:.3e})")
+    return worst
+
+
+def _serve_check(trainer, ckpt_dir, x):
+    """InferenceSession from the checkpoint on the card: shapes, finite
+    outputs, and equal to the session taken from the live trainer that
+    saved it (atol 1e-6)."""
+    from clearvae_torch.models.vae import VAE
+    from clearvae_torch.serve import InferenceSession
+
+    sess = InferenceSession.from_checkpoint(VAE(total_z_dim=16), ckpt_dir)
+    live = InferenceSession.from_trainer(trainer)
+    if sess.device.type != "cuda":
+        fail(f"the inference session runs on {sess.device}, not the card")
+    b = len(x)
+    shapes = {"encode": [tuple(h.shape) for h in sess.encode(x)],
+              "reconstruct": tuple(sess.reconstruct(x).shape),
+              "sampled": tuple(sess.reconstruct(x, sample=True, seed=1).shape),
+              "swap": tuple(sess.swap(x[: b // 2], x[b // 2:]).shape),
+              "interpolate": [tuple(sess.interpolate(x[0], x[1], 7, w).shape)
+                              for w in ("style", "content")]}
+    want = {"encode": [(b, 8)] * 4, "reconstruct": (b, 28, 28, 1),
+            "sampled": (b, 28, 28, 1), "swap": (b // 2, 28, 28, 1),
+            "interpolate": [(7, 28, 28, 1)] * 2}
+    if shapes != want:
+        fail(f"inference session shapes {shapes}, expected {want}")
+    err = check_close("session from the checkpoint vs from the trainer",
+                      sess.reconstruct(x), live.reconstruct(x), rtol=0.0,
+                      atol=1e-6)
+    print(f"[graph] InferenceSession.from_checkpoint on the card: shapes "
+          f"{shapes}; reconstruct equals from_trainer's within {err:.2e}")
+
+
+def _time_steps(trainer, train_ds, tag, gpu, n: int = 20):
+    """Eager and graphed steps of one trainer on the same batches, in turns
+    (eager, graphed, graphed, eager): wall ms a step (host clock up to a
+    synchronize), device-busy ms a step and kernels a step (profiler),
+    idle share, images/sec. Each profile is also written as a Chrome trace
+    under .runs/chip_smoke_graph/; the graphed one's device events are where
+    the fused-loss kernels are counted by name."""
+    from clearvae_torch.train import steps as S
+    from clearvae_torch.utils.logging import profile_trace
+
+    bs = 128
+    ds_key = (id(train_ds), bs, False)
+    trainer.fit(1, train_ds, batch_size=bs, use_scan=True)   # the capture
+    torch.cuda.synchronize()
+    graphed = trainer._graphs[ds_key][1]
+    data, labels = graphed.data, graphed.labels
+    rows = torch.as_tensor(np.random.RandomState(1).permutation(len(labels))
+                           [: n * bs].reshape(n, bs), device=labels.device)
+    eager_epoch = S.make_epoch_fn(trainer.train_step)
+    fns = {"eager": lambda: eager_epoch(data, labels, rows,
+                                        trainer._train_noise),
+           "graphed": lambda: graphed.run(rows)}
+    fns["eager"]()
+    walls = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[mode]()
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / n)
+    stats = {}
+    traces = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".runs",
+                          "chip_smoke_graph")
+    for mode, fn in fns.items():
+        for _ in range(3):     # a profile with no kernel is the profiler's loss
+            with profile_trace(os.path.join(
+                    traces, f"trace_{tag.split()[0]}_{mode}")) as prof:
+                fn()
+            by_name, counts = _device_kernels(prof, counts=True)
+            if counts:
+                break
+        if not counts:
+            fail(f"{tag} {mode}: the profiler recorded no kernel")
+        busy = sum(by_name.values()) / 1e3 / n
+        stats[mode] = dict(
+            walls_ms=walls[mode], device_busy_ms=busy,
+            idle_share=[1 - busy / w for w in walls[mode]],
+            kernels_per_step=sum(counts.values()) / n,
+            images_per_sec=[bs * 1e3 / w for w in walls[mode]],
+            fused=({k: v for k, v in counts.items() if "clear_latent_" in k}))
+        print(f"[graph] {tag} {mode} step (B={bs}, {n} steps a turn): wall "
+              f"{'/'.join(f'{w:.3f}' for w in walls[mode])} ms, device busy "
+              f"{busy:.3f} ms, idle share "
+              f"{'/'.join(f'{s:.3f}' for s in stats[mode]['idle_share'])}, "
+              f"{stats[mode]['kernels_per_step']:.1f} kernels/step, images/sec "
+              f"{'/'.join(f'{r:.1f}' for r in stats[mode]['images_per_sec'])}"
+              f"; {gpu}")
+    return stats
+
+
+def phase_graph(gpu, train_ds, valid_ds, here):
+    """The graphed train step (``fit(use_scan=True)``, one captured CUDA
+    graph a step) against the eager one, for the fused CLEAR, CLEAR-TC and
+    CLEAR-MIM (CLUB-S) trainers on phase 3's data (see the module
+    docstring); returns {kernel: launches} summed over the three graphed
+    fits, each fit's counters zeroed just before it and read after."""
+    import shutil
+
+    dev = torch.device("cuda")
+    total = {k: 0 for k in (*REPLACES, "style_batch")}
+    root = os.path.join(here, ".runs", "chip_smoke_graph")
+    shutil.rmtree(root, ignore_errors=True)
+    det = torch.backends.cudnn.deterministic
+    trainers = {}
+    for name, (factory, kw) in _graph_runs().items():
+        torch.backends.cudnn.deterministic = True
+        try:
+            eager, le = _graph_fit(factory, kw, train_ds, 2)
+            graphed, lg = _graph_fit(factory, kw, train_ds, 2, use_scan=True)
+            n_e, n_g = eager.train_step.step, graphed.train_step.step
+            if not n_e == n_g == ADV_STEPS:
+                fail(f"{name}: {n_e} eager and {n_g} graphed updates, "
+                     f"expected {ADV_STEPS}")
+            diff = _same_training(f"{name} graphed vs eager", eager, graphed)
+            want = ({"clear_latent_fwdgrad": n_g, "clear_latent_bwd": n_g,
+                     "snn_fwd": 0, "snn_bwd": 0} if name == "clear" else
+                    {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
+                     "snn_fwd": n_g, "snn_bwd": n_g})
+            want["style_batch"] = 0
+            if lg != want or le != want:
+                fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
+                     f"expected {want}")
+            for k in total:
+                total[k] += lg[k]
+            print(f"[graph] {name}: {n_g} graphed updates == {n_e} eager; "
+                  f"histories and final state within phase 5's bars, max abs "
+                  f"diff {diff:.3e} (cudnn.deterministic); launches by replay "
+                  f"{lg}")
+            # checkpoint after epoch 0 -> a fresh trainer restores and runs
+            # epoch 1 graphed: the uninterrupted graphed fit's epoch 1
+            ck = os.path.join(root, name.split()[0])
+            first, _ = _graph_fit(factory, kw, train_ds, 1, use_scan=True,
+                                  checkpoint_dir=ck)
+            resumed = factory(**ADV_COMMON, **kw)
+            resumed.restore_checkpoint(ck)
+            resumed.fit(1, train_ds, batch_size=128, use_scan=True,
+                        start_epoch=1)
+            torch.cuda.synchronize()
+            rdiff = _same_training(f"{name} resumed vs uninterrupted", graphed,
+                                   resumed, a_epochs=slice(1, 2))
+            print(f"[graph] {name}: checkpoint -> restore -> fit(start_epoch=1)"
+                  f" graphed equals the uninterrupted graphed fit, max abs diff "
+                  f"{rdiff:.3e}")
+            if name == "clear":
+                x = valid_ds.materialize(dev)[:64, ..., None]
+                _serve_check(first, ck, x)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        trainers[name] = factory(**ADV_COMMON, **kw)
+    per_step = {"clear": {"clear_latent_fwdgrad_kernel": 1,
+                          "clear_latent_bwd_kernel": 1}}
+    for name in ("clear-tc", "clear-mim (CLUB-S)"):   # K2f and K2b
+        per_step[name] = {"clear_latent_fwdgrad_kernel": 2}
+    for name, trainer in trainers.items():
+        stats = _time_steps(trainer, train_ds, name, gpu)
+        seen = {}
+        for k, v in stats["graphed"]["fused"].items():
+            for kname in per_step["clear"]:
+                if kname in k:
+                    seen[kname] = seen.get(kname, 0) + v
+        want = {k: 20 * v for k, v in per_step[name].items()}
+        if seen != want:
+            fail(f"{name}: the device trace of 20 replays holds {seen} "
+                 f"fused-loss kernels, expected {want}")
+        print(f"[graph] {name}: device trace of 20 replays: {seen} (expected "
+              f"{want})")
+    return total
+
+
 class _Recorder:
     """Wraps methods of the port's trainers for the length of the downstream
     run: each call's bound arguments, result and seconds (ended by a device
@@ -1204,10 +1447,12 @@ def main():
     k3_err, k3_times = phase_style_kernel()
     launches, (train_ds, valid_ds) = phase_main(gpu)
     adv = phase_adversarial(gpu, train_ds, valid_ds)
+    graph = phase_graph(gpu, train_ds, valid_ds, here)
     down = phase_downstream(gpu, here)
     mig = phase_mig(gpu, here)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
-                      "downstream": down[name], "mig": mig[name]}
+                      "graph": graph[name], "downstream": down[name],
+                      "mig": mig[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and

@@ -155,3 +155,61 @@ def cnn_params_from_flax(params: dict, batch_stats: dict) -> dict:
     _bn(sd, "hidden_bn", params["hidden_bn"], batch_stats["hidden_bn"])
     _dense(sd, "out", params["out"]["Dense_0"])
     return _tensors(sd)
+
+
+def _adam_moments(opt_state):
+    """optax.adam's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside
+    an optimizer state (a chain's tuple of states)."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_moments(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, params_map, names) -> dict:
+    """The ``state`` of a torch Adam ``state_dict`` from optax.adam's state.
+
+    ``params_map`` maps a tree shaped like the flax params to the module's
+    state dict (e.g. ``lambda p: params_from_flax(p, batch_stats)``): the
+    moments are laid out as the parameters are, so they map the same way.
+    ``names`` are the module's parameter names in ``parameters()`` order,
+    the order of the optimizer's state indices. optax's ``count`` is
+    torch's per-parameter ``step``."""
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState in the optimizer state")
+    mu, nu = params_map(adam.mu), params_map(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    return {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            for i, n in enumerate(names)}
+
+
+def trainer_state_from_flax(state, trainer) -> dict:
+    """A JAX ``TrainState`` (params, batch_stats, opt_state, step, and the
+    second player's aux_params / aux_opt_state where there is one) as the
+    port trainer's ``state_dict()``, for ``trainer.load_state_dict``:
+    weights, Adam's moments and counts, and the update count. The optimizers'
+    hyperparameters (their ``param_groups``) and the noise generator's state
+    are the trainer's own. ``state``'s leaves are numpy arrays."""
+    batch_stats = state.batch_stats
+    maps = {"model": lambda p: params_from_flax(p, batch_stats),
+            "factor_cls": factor_params_from_flax,
+            "mi_estimator": mi_params_from_flax}
+    flax = {"model": (state.params, state.opt_state),
+            "factor_cls": (state.aux_params, state.aux_opt_state),
+            "mi_estimator": (state.aux_params, state.aux_opt_state)}
+    out = trainer.state_dict()
+    for module, opt in zip(trainer.MODULES, trainer.OPTIMIZERS):
+        params, opt_state = flax[module]
+        sd = maps[module](params)
+        out["modules"][module] = {**out["modules"][module], **sd}
+        names = [n for n, _ in getattr(trainer, module).named_parameters()]
+        out["optimizers"][opt] = {
+            "state": adam_state_from_optax(opt_state, maps[module], names),
+            "param_groups": out["optimizers"][opt]["param_groups"]}
+    out["step"] = torch.tensor(int(np.asarray(state.step)), dtype=torch.int64)
+    return out

@@ -8,6 +8,11 @@ keys added to the trainer's dict; ``{"fused": True}`` routes the latent
 losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
 of c_loss for CLEAR-TC and CLEAR-MIM). ``trainer_from_config`` builds one
 of them from a typed ``config.ClearVAEConfig``.
+
+Adam is built with ``capturable=True`` on a CUDA device, so that one
+optimizer serves the eager step and the captured one
+(``fit(use_scan=True)``) with the same update kernels. torch refuses
+``capturable`` for CPU parameters, so it stays off there.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import functools
 
 import torch
 
+from clearvae_torch import resolve_device
 from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mi_estimators import MI_ESTIMATORS
 from clearvae_torch.registry import MODELS
@@ -30,8 +36,10 @@ def _seeded(seed: int, build):
         return build()
 
 
-def _adam(lr: float):
-    return functools.partial(torch.optim.Adam, lr=lr)
+def _adam(lr: float, device):
+    return functools.partial(
+        torch.optim.Adam, lr=lr,
+        capturable=resolve_device(device).type == "cuda")
 
 
 def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
@@ -40,7 +48,7 @@ def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
     """reference trainer_utils.py:21-34 (Adam lr 1e-4)."""
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
-    return SimpleCNNTrainer(cnn, _adam(1e-4), verbose_period, seed, device)
+    return SimpleCNNTrainer(cnn, _adam(1e-4, device), verbose_period, seed, device)
 
 
 def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
@@ -55,7 +63,8 @@ def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
         total_z_dim=z_dim, in_channel=in_channel, group_mode=group_mode,
         n_classes=n_classes, **(vae_kwargs or {})))
     return HierarchicalVAETrainer(
-        vae, _adam(vae_lr), hyperparameter={"beta": beta, "scale": 1, "loc": 0},
+        vae, _adam(vae_lr, device),
+        hyperparameter={"beta": beta, "scale": 1, "loc": 0},
         verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
         device=device)
 
@@ -74,7 +83,7 @@ def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "ps": ps,
           "loc": 0, "scale": 1, **(hyperparameter or {})}
     return CLEARVAETrainer(
-        vae, _adam(vae_lr), sim_fn=sim_fn, hyperparameter=hp,
+        vae, _adam(vae_lr, device), sim_fn=sim_fn, hyperparameter=hp,
         verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
         device=device)
 
@@ -95,8 +104,8 @@ def get_cleartcvae_trainer(beta, la, vae_lr, factor_cls_lr, z_dim, alpha,
           "scale": 1, "lambda": la, **(hyperparameter or {})}
     return ClearTCVAETrainer(
         vae, factor_cls,
-        optimizers={"vae_optim": _adam(vae_lr),
-                    "factor_optim": _adam(factor_cls_lr)},
+        optimizers={"vae_optim": _adam(vae_lr, device),
+                    "factor_optim": _adam(factor_cls_lr, device)},
         sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
         seed=seed, mig_backend=mig_backend, device=device)
 
@@ -120,8 +129,8 @@ def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
           "alpha": alpha, "lambda": la, **(hyperparameter or {})}
     return ClearMIMVAETrainer(
         vae, est,
-        optimizers={"vae_optim": _adam(vae_lr),
-                    "mi_estimator_optim": _adam(mi_estimator_lr)},
+        optimizers={"vae_optim": _adam(vae_lr, device),
+                    "mi_estimator_optim": _adam(mi_estimator_lr, device)},
         sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
         seed=seed, mig_backend=mig_backend, device=device)
 

@@ -2,10 +2,17 @@
 
 A step factory closes over the model, the optimizer and the static
 configuration and returns a callable ``step(x, label, noise)`` that updates
-them in place. PyTorch runs eagerly, so there is no jit and no scan: the
-trainer loops in Python over batches that stay on the device. Metrics come
-back as 0-d tensors on the device, so a step forces no host
-synchronisation.
+them in place. A train step counts its updates in ``count``, an int64 0-d
+tensor on the model's device that it increments in place, and computes the
+anneal weight from it there (the JAX package's ``state.step``); ``step``
+reads it as an int, a host sync that nothing inside a step makes. Metrics
+come back as 0-d tensors on the device, so a step forces no host
+synchronisation either.
+
+Epoch runners loop over the batches of an epoch, which stay on the device:
+``make_epoch_fn`` eagerly, ``make_graphed_epoch_fn`` through one captured
+CUDA graph of the whole step (the counterpart of the JAX package's scanned
+epoch program, one dispatch a step instead of one a kernel).
 
 ``noise`` holds every random draw of the step, made by the trainer (or
 injected by a test): the reparameterization's (eps_c, eps_s) for the CLEAR,
@@ -22,6 +29,7 @@ from torch.nn import functional as F
 
 from clearvae_torch.ops import losses as L
 from clearvae_torch.ops.group import grouped_kl
+from clearvae_torch.ops.kernels import fused_loss as FL
 from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
                                                    fused_contrastive_loss)
 from clearvae_torch.ops.schedules import logistic_anneal
@@ -34,6 +42,25 @@ def _contrastive(cc, mu, logvar, label, ps):
               loss_name=cc.loss_name, ps=ps)
 
 
+class _Counted:
+    """A train step's update counter: ``count`` on the model's device,
+    incremented in place, so that a captured step increments it on every
+    replay; ``step`` reads it (a host sync)."""
+
+    def _init_count(self, model):
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=next(model.parameters()).device)
+
+    @property
+    def step(self) -> int:
+        return int(self.count)
+
+    def _anneal(self):
+        a = self.anneal_cfg
+        return logistic_anneal(self.count, beta=a.beta, loc=a.loc,
+                               scale=a.scale)
+
+
 def _clear_terms(lp, label, cc):
     """The two CLEAR regularizers (reference trainer.py:456-472)."""
     c_loss = _contrastive(cc, lp["mu_c"], lp["logvar_c"], label, False)
@@ -41,22 +68,21 @@ def _clear_terms(lp, label, cc):
     return c_loss, (s_loss if cc.ps else -s_loss)
 
 
-class ClearVAEStep:
+class ClearVAEStep(_Counted):
     """One CLEAR-VAE training step (reference CLEARVAETrainer._train,
     trainer.py:435-493), routed as ``make_clear_vae_step`` of the JAX
-    package. ``step`` counts the updates; the anneal weight uses its value
-    before the increment."""
+    package. The anneal weight uses the count before the increment."""
 
     def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg):
         cc = contrastive_cfg
         self.model, self.optimizer = model, optimizer
         self.anneal_cfg, self.cc = anneal_cfg, cc
         self.use_fused = cc.fused and cc.sim_fn == "cosine" and cc.loss_name == "snn"
-        self.step = 0
+        self._init_count(model)
 
     def loss(self, x, label, eps):
         """(loss, metrics) of one train-mode forward; updates BN stats."""
-        cc, a = self.cc, self.anneal_cfg
+        cc = self.cc
         x_hat, lp, _ = self.model(x, train=True, eps=eps)
         if self.use_fused:
             # one K1 call for KL(c) + KL(s) + SNN + PS-SNN and their grads
@@ -70,7 +96,7 @@ class ClearVAEStep:
             recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                            lp["mu_s"], lp["logvar_s"])
             c_loss, s_loss = _clear_terms(lp, label, cc)
-        w = logistic_anneal(self.step, beta=a.beta, loc=a.loc, scale=a.scale)
+        w = self._anneal()
         loss = recon + w * kl_c + w * kl_s + cc.alpha * (c_loss + s_loss)
         metrics = {"loss": loss, "recon": recon, "kl_c": kl_c, "kl_s": kl_s,
                    "c_loss": c_loss, "s_loss": s_loss}
@@ -81,7 +107,7 @@ class ClearVAEStep:
         loss, metrics = self.loss(x, label, eps)
         loss.backward()
         self.optimizer.step()
-        self.step += 1
+        self.count.add_(1)
         return metrics
 
 
@@ -121,28 +147,27 @@ def _kl(mu, logvar):
 # ---------------------------------------------------------------------------
 
 
-class HierarchicalStep:
+class HierarchicalStep(_Counted):
     """One GVAE/ML-VAE step (``make_hierarchical_step``): the content KL on
     the group params, recon and the style KL scaled by B/m, m the number of
     groups present (trainer.py:322-324,345-348)."""
 
     def __init__(self, model, optimizer, anneal_cfg):
         self.model, self.optimizer, self.anneal_cfg = model, optimizer, anneal_cfg
-        self.step = 0
+        self._init_count(model)
 
     def __call__(self, x, label, eps):
-        a = self.anneal_cfg
         self.optimizer.zero_grad(set_to_none=True)
         x_hat, lp, _ = self.model(x, train=True, eps=eps, label=label)
         recon = L.sample_level_reduction((x_hat - x) ** 2)
         kl_c = grouped_kl(lp["mu_c"], lp["logvar_c"], lp["present"])
         adj = x.shape[0] / lp["present"].sum().clamp_min(1)
         recon, kl_s = recon * adj, _kl(lp["mu_s"], lp["logvar_s"]) * adj
-        w = logistic_anneal(self.step, beta=a.beta, loc=a.loc, scale=a.scale)
+        w = self._anneal()
         loss = recon + w * kl_c + w * kl_s
         loss.backward()
         self.optimizer.step()
-        self.step += 1
+        self.count.add_(1)
         return {k: v.detach() for k, v in (("loss", loss), ("recon", recon),
                                            ("kl_c", kl_c), ("kl_s", kl_s))}
 
@@ -186,7 +211,7 @@ def factor_shuffling(z: torch.Tensor, strategy: str = "permute_1") -> torch.Tens
     return torch.cat([z[:, :zd], torch.roll(z[:, zd:], -1, 0)], 1)
 
 
-class _TwoPlayerStep:
+class _TwoPlayerStep(_Counted):
     """Phase 1 of CLEAR-TC and CLEAR-MIM: the VAE update with the second
     player frozen. The VAE loss is recon + w·KL + α·c_loss + λ·mi_loss, and
     its backward reaches the VAE's parameters only (the JAX step
@@ -198,19 +223,19 @@ class _TwoPlayerStep:
         self.model, self.optimizer = model, optimizer
         self.anneal_cfg, self.cc, self.la = anneal_cfg, contrastive_cfg, la
         self.vae_params = list(model.parameters())
-        self.step = 0
+        self._init_count(model)
 
     def _vae_update(self, x, label, eps, mi_loss_fn):
         """(metrics, latent_params) of the update; ``mi_loss_fn(z)`` is the
         second player's penalty on the sampled latents."""
-        cc, a = self.cc, self.anneal_cfg
+        cc = self.cc
         self.optimizer.zero_grad(set_to_none=True)
         x_hat, lp, z = self.model(x, train=True, eps=eps)
         recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                        lp["mu_s"], lp["logvar_s"])
         c_loss = _contrastive(cc, lp["mu_c"], lp["logvar_c"], label, False)
         mi_loss = mi_loss_fn(z)
-        w = logistic_anneal(self.step, beta=a.beta, loc=a.loc, scale=a.scale)
+        w = self._anneal()
         loss = (recon + w * kl_c + w * kl_s + cc.alpha * c_loss
                 + self.la * mi_loss)
         loss.backward(inputs=self.vae_params)
@@ -252,7 +277,7 @@ class ClearTCStep(_TwoPlayerStep):
         d_loss = F.binary_cross_entropy_with_logits(logits, target)
         d_loss.backward()
         self.factor_optimizer.step()
-        self.step += 1
+        self.count.add_(1)
         metrics["factor_d_loss"] = d_loss.detach()
         return metrics
 
@@ -323,7 +348,7 @@ class ClearMIMStep(_TwoPlayerStep):
             inner_loss = self.mi_estimator.learning_loss(z[:, :zd], z[:, zd:])
             inner_loss.backward()
             self.mi_optimizer.step()
-        self.step += 1
+        self.count.add_(1)
         metrics["mi_learning_loss"] = inner_loss.detach()
         return metrics
 
@@ -360,18 +385,25 @@ def make_clear_mim_eval_step(model, mi_estimator, contrastive_cfg):
 # ---------------------------------------------------------------------------
 
 
-def make_cnn_step(model, optimizer):
+class CNNStep(_Counted):
     """``step(x, label, noise)``: one Adam step of the cross-entropy, BN in
     train mode; ``noise`` is unused (None)."""
 
-    def step_fn(x, label, noise=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss = _ce(model(x, train=True), label)
+    def __init__(self, model, optimizer):
+        self.model, self.optimizer = model, optimizer
+        self._init_count(model)
+
+    def __call__(self, x, label, noise=None):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = _ce(self.model(x, train=True), label)
         loss.backward()
-        optimizer.step()
+        self.optimizer.step()
+        self.count.add_(1)
         return {"loss": loss.detach()}
 
-    return step_fn
+
+def make_cnn_step(model, optimizer) -> CNNStep:
+    return CNNStep(model, optimizer)
 
 
 def make_cnn_logits_fn(model):
@@ -417,6 +449,134 @@ def make_styled_epoch_fn(step, styler):
                 for idx in batch_idx]
 
     return epoch_fn
+
+
+class GraphedEpoch:
+    """The train step of ``make_graphed_epoch_fn`` over static buffers.
+
+    ``run(batch_idx)`` takes one step per row of ``batch_idx`` [n, B] on
+    the device and returns the metrics as a [n, k] tensor there, columns in
+    the order of ``keys``. Per row, outside the graph: the index row is
+    copied into the static index buffer, the batch is styled into the
+    static image buffer when there is a ``styler``, the noise is drawn into
+    the static noise tensors with ``draw_noise(B, out)`` (the draws of the
+    eager step, so both consume one random stream alike), and after the
+    step the metrics vector is copied into the row's history.
+
+    Inside the graph: the gather of the batch from the resident data, then
+    the whole step (forward, the fused-loss kernels, backward and every
+    optimizer update). The graph holds pointers to the parameters, the
+    BatchNorm buffers and the optimizer's state, so whoever replaces one of
+    them (``optimizer.load_state_dict``) drops this object.
+
+    On a CUDA device the first ``WARMUP`` rows run as real steps on a side
+    stream (lazy state such as Adam's moments is made there), the next row
+    is captured and then replayed, like every later one: as many updates as
+    the eager loop makes. A capture failure raises; there is no eager
+    fallback. The fused-loss launches counted during the capture are taken
+    off ``fused_loss.LAUNCHES`` and added back on every replay. On the CPU (tests) the
+    same body runs uncaptured on every row.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, step, data, labels, batch_size: int, draw_noise,
+                 styler=None, style_arrays=None):
+        self.step, self.data, self.labels = step, data, labels
+        self.draw_noise = draw_noise
+        self.styler, self.style_arrays = styler, style_arrays
+        dev = labels.device
+        self.cuda = dev.type == "cuda"
+        self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        self.x = None
+        if styler is not None:   # raw [N, H, W]: styled batches [B, H, W, 1]
+            self.x = torch.zeros((batch_size, *style_arrays[0].shape[1:], 1),
+                                 dtype=torch.float32, device=dev)
+        self.noise = None
+        self.keys = None
+        self.graph = None
+        self.out = None
+        self.launches = None     # kernel launches of one replay
+        self.warm = 0
+
+    def _body(self):
+        x = self.data[self.idx] if self.styler is None else self.x
+        m = self.step(x, self.labels[self.idx], self.noise)
+        if self.keys is None:
+            self.keys = tuple(m)
+        return torch.stack([m[k] for k in self.keys])
+
+    def _stage(self, row):
+        self.idx.copy_(row)
+        if self.styler is not None:
+            raw, sidx, draws = self.style_arrays
+            self.x[..., 0].copy_(self.styler(raw[row], sidx[row], draws[row]))
+        self.noise = self.draw_noise(len(row), self.noise)
+
+    def _capture(self):
+        before = dict(FL.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._body()
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the train step {type(self.step).__name__} in a "
+                f"CUDA graph failed: {exc}") from exc
+        self.launches = {k: v - before[k] for k, v in FL.LAUNCHES.items()}
+        FL.LAUNCHES.update(before)
+        self.graph, self.out = graph, out
+
+    def _replay(self):
+        self.graph.replay()
+        for k, v in self.launches.items():
+            FL.LAUNCHES[k] += v
+        return self.out
+
+    def _warm_up(self):
+        side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._body()
+        main.wait_stream(side)
+        out.record_stream(main)
+        self.warm += 1
+        return out
+
+    def _one(self):
+        if not self.cuda:
+            return self._body()
+        if self.graph is None and self.warm < self.WARMUP:
+            return self._warm_up()
+        if self.graph is None:
+            self._capture()
+        return self._replay()
+
+    def run(self, batch_idx) -> torch.Tensor:
+        hist = None
+        for i, row in enumerate(batch_idx):
+            self._stage(row)
+            vec = self._one()
+            if hist is None:
+                hist = torch.empty((len(batch_idx), len(vec)),
+                                   dtype=vec.dtype, device=vec.device)
+            hist[i].copy_(vec)
+        return hist
+
+
+def make_graphed_epoch_fn(step, data, labels, batch_size: int, draw_noise,
+                          styler=None, style_arrays=None) -> GraphedEpoch:
+    """The counterpart of the JAX package's scanned ``make_epoch_fn``
+    (steps.py:630): the train ``step`` captured once in a CUDA graph over
+    static buffers and replayed per batch, one dispatch a step. ``data``
+    [N, H, W, C] and ``labels`` [N] stay resident; with ``styler`` (the
+    dataset's ``style``) ``data`` is None and ``style_arrays`` = (raw
+    [N, H, W], style_idx, draws): each batch is styled eagerly outside the
+    graph (zigzag and canny sync the host) and copied into the static image
+    buffer. ``draw_noise(B, out)`` draws a step's noise, into ``out`` when
+    given. See ``GraphedEpoch``."""
+    return GraphedEpoch(step, data, labels, batch_size, draw_noise, styler,
+                        style_arrays)
 
 
 # ---------------------------------------------------------------------------

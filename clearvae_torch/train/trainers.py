@@ -10,11 +10,17 @@ deterministic styles). Every random draw of a step (reparameterization
 noise, CLUBSample's permutation, the MIM estimator's inner noise) comes from
 one ``torch.Generator`` seeded from ``seed``. ``fit`` returns the loss
 histories where the JAX package's does (CLEAR-TC: ``factor_d_losses``;
-CLEAR-MIM: ``(mi_losses, mi_learning_losses)``). Checkpoints, the metric
-logger, multi-epoch dispatch and meshes are not ported yet.
+CLEAR-MIM: ``(mi_losses, mi_learning_losses)``). ``fit(use_scan=True)``
+replays the train step as one captured CUDA graph a batch; checkpoints hold
+the whole trainer state, the noise generator's included, so that a resumed
+``fit(start_epoch=k)`` reproduces the uninterrupted run. Meshes are not
+ported.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -28,8 +34,14 @@ from clearvae_torch.train import steps as S
 
 
 class TrainerCore:
-    """Device, noise generator and the fit loop shared by every trainer
-    (reference Trainer base, trainer.py:41-75)."""
+    """Device, noise generator, checkpoints and the fit loop shared by every
+    trainer (reference Trainer base, trainer.py:41-75).
+
+    ``MODULES`` and ``OPTIMIZERS`` name the attributes that a checkpoint
+    holds beside the train step's counter and the noise generator."""
+
+    MODULES = ("model",)
+    OPTIMIZERS = ("optimizer",)
 
     def __init__(self, model, verbose_period: int = 5, seed: int = 0,
                  device=None):
@@ -40,15 +52,26 @@ class TrainerCore:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # one entry per epoch: {metric: np.ndarray [n_batches]}
         self.history: list[dict] = []
+        # captured train steps, keyed by (dataset, batch size, styled)
+        self._graphs: dict = {}
 
-    def _draw_eps(self, n: int):
-        """(eps_c, eps_s) for a batch of n: z_c's noise first."""
-        return torch.randn((2, n, self.model.z_dim), generator=self.generator,
-                           device=self.device).unbind(0)
+    def _randn(self, shape, out=None):
+        if out is None:
+            return torch.randn(shape, generator=self.generator,
+                               device=self.device)
+        return torch.randn(shape, generator=self.generator, out=out)
 
-    def _train_noise(self, n: int):
-        """The draws one train step of a batch of n takes."""
-        return self._draw_eps(n)
+    def _draw_eps(self, n: int, out=None):
+        """[eps_c, eps_s] for a batch of n, one [2, n, z] draw (z_c's noise
+        first); into ``out`` when given."""
+        return self._randn((2, n, self.model.z_dim), out)
+
+    def _train_noise(self, n: int, out=None):
+        """The draws one train step of a batch of n takes; into the tensors
+        of ``out`` (what an earlier call returned) when given. A replaced
+        ``_draw_eps`` may take ``n`` alone, so ``out`` goes only where
+        given."""
+        return self._draw_eps(n) if out is None else self._draw_eps(n, out)
 
     def _eval_noise(self, n: int):
         """The draws one eval step of a batch of n takes."""
@@ -69,6 +92,14 @@ class TrainerCore:
         return torch.as_tensor(np.asarray(ds.labels), dtype=torch.int64,
                                device=self.device)
 
+    def _style_arrays(self, ds):
+        """(raw images, style_idx, draws) of a StyledDataset on the device."""
+        if not hasattr(ds, "device_arrays"):
+            raise ValueError("style_on_device requires a StyledDataset "
+                             f"(raw images + style_idx); got "
+                             f"{type(ds).__name__}")
+        return ds.device_arrays(self.device)
+
     def _epoch_runner(self, ds, step, style_on_device: bool, draw_noise):
         """``run(batch_idx [n, B]) -> [n per-batch outputs]`` of ``step`` over
         ``ds`` on the device, each batch with the draws of ``draw_noise``:
@@ -76,22 +107,59 @@ class TrainerCore:
         (StyledDataset only), from the raw images and styled per batch."""
         labels = self._labels(ds)
         if style_on_device:
-            if not hasattr(ds, "device_arrays"):
-                raise ValueError("style_on_device requires a StyledDataset "
-                                 f"(raw images + style_idx); got "
-                                 f"{type(ds).__name__}")
-            raw, sidx, draws = ds.device_arrays(self.device)
+            raw, sidx, draws = self._style_arrays(ds)
             fn = S.make_styled_epoch_fn(step, ds.style)
             return lambda bi: fn(raw, labels, sidx, draws, bi, draw_noise)
         data, _ = self._device_data(ds)
         fn = S.make_epoch_fn(step)
         return lambda bi: fn(data, labels, bi, draw_noise)
 
+    def _graphed_runner(self, ds, batch_size: int, style_on_device: bool):
+        """``run(batch_idx [n, B]) -> {metric: [n]}`` through the captured
+        train step of ``S.make_graphed_epoch_fn``, one per (dataset, B,
+        styling), made at first use. The entry keeps the dataset and its
+        resident arrays alive, so the key cannot name another one."""
+        key = (id(ds), batch_size, style_on_device)
+        if key not in self._graphs:
+            labels = self._labels(ds)
+            if style_on_device:
+                ep = S.make_graphed_epoch_fn(
+                    self.train_step, None, labels, batch_size,
+                    self._train_noise, styler=ds.style,
+                    style_arrays=self._style_arrays(ds))
+            else:
+                data, _ = self._device_data(ds)
+                ep = S.make_graphed_epoch_fn(self.train_step, data, labels,
+                                             batch_size, self._train_noise)
+            self._graphs[key] = (ds, ep)
+        ep = self._graphs[key][1]
+
+        def run(batch_idx):
+            hist = ep.run(batch_idx).cpu().numpy()
+            return {k: hist[:, j] for j, k in enumerate(ep.keys)}
+
+        return run
+
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
-            start_epoch: int = 0, style_on_device: bool = False):
-        """Train for ``epochs`` epochs from ``start_epoch`` (which keys the
-        shuffles; the noise generator continues from its current state).
-        Per-epoch metric arrays are appended to ``self.history``.
+            use_scan: bool | None = None, checkpoint_dir: str | None = None,
+            checkpoint_every: int = 10, logger=None,
+            style_on_device: bool = False, start_epoch: int = 0):
+        """Train for ``epochs`` epochs from ``start_epoch``, which keys the
+        shuffles. Per-epoch metric arrays are appended to ``self.history``.
+
+        ``use_scan=True`` runs each batch as one replay of the train step
+        captured in a CUDA graph (``S.make_graphed_epoch_fn``): the same
+        updates from the same noise, one dispatch a step. ``None`` (the
+        default) is the eager loop here, where the JAX package turns its
+        scan on: the eager and graphed steps are to be measured against
+        each other on the card before the default moves.
+
+        With ``checkpoint_dir`` the trainer state is saved every
+        ``checkpoint_every`` epochs and at the end; with ``logger``
+        (``utils.logging.MetricLogger``) each epoch's last metrics and its
+        images/sec are logged under the tag "train". A checkpoint holds the
+        noise generator's state, so ``restore_checkpoint`` and then
+        ``fit(start_epoch=k)`` reproduce the run that saved it.
 
         ``style_on_device`` (StyledDataset only) keeps only the raw images
         on the device and styles each batch there, keyed by (dataset seed,
@@ -99,19 +167,34 @@ class TrainerCore:
         In-fit validation then styles its batches the same way. Returns
         ``_fit_result()``: None here, the loss histories in CLEAR-TC and
         CLEAR-MIM."""
-        run = self._epoch_runner(train_ds, self.train_step, style_on_device,
-                                 self._train_noise)
         n = len(train_ds)
         batch_size = min(batch_size, n)  # tiny split: shrink, don't drop all
         n_batches = n // batch_size
-        for epoch in range(start_epoch, start_epoch + epochs):
+        if use_scan:
+            run = self._graphed_runner(train_ds, batch_size, style_on_device)
+        else:
+            eager = self._epoch_runner(train_ds, self.train_step,
+                                       style_on_device, self._train_noise)
+
+            def run(batch_idx):
+                ms = eager(batch_idx)
+                return {k: torch.stack([m[k] for m in ms]).cpu().numpy()
+                        for k in ms[0]}
+
+        end_epoch = start_epoch + epochs
+        for epoch in range(start_epoch, end_epoch):
+            t0 = time.perf_counter()
             perm = np.random.RandomState(self.seed + epoch).permutation(n)
-            ms = run(torch.as_tensor(
+            self.history.append(run(torch.as_tensor(
                 perm[: n_batches * batch_size].reshape(n_batches, batch_size),
-                device=self.device))
-            self.history.append({k: torch.stack([m[k] for m in ms]).cpu().numpy()
-                                 for k in ms[0]})
+                device=self.device)))
             self._post_train_epoch(self.history[-1])
+            if logger is not None:
+                dt = time.perf_counter() - t0
+                logger.log("train", step=self.train_step.step, epoch=epoch,
+                           images_per_sec=n / dt if dt > 0 else 0,
+                           **{k: float(v[-1])
+                              for k, v in self.history[-1].items()})
             if epoch % self.verbose_period == 0:
                 last = {k: round(float(v[-1]), 3)
                         for k, v in self.history[-1].items()}
@@ -121,7 +204,56 @@ class TrainerCore:
                         valid_ds, batch_size,
                         style_on_device=(style_on_device
                                          and hasattr(valid_ds, "device_arrays")))
+            if checkpoint_dir and ((epoch + 1) % checkpoint_every == 0
+                                   or epoch + 1 == end_epoch):
+                self.save_checkpoint(checkpoint_dir, {"epoch": epoch})
         return self._fit_result()
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """The whole trainer state: each module's and optimizer's state
+        dict, the train step's update count and the noise generator's
+        state."""
+        return {"modules": {m: getattr(self, m).state_dict()
+                            for m in self.MODULES},
+                "optimizers": {o: getattr(self, o).state_dict()
+                               for o in self.OPTIMIZERS},
+                "step": self.train_step.count.detach().cpu().clone(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load ``state_dict()``'s dict into this trainer. Parameters,
+        buffers and the update count are copied in place; the optimizers'
+        state tensors are replaced, so the captured train steps, which point
+        at them, are dropped and the next graphed ``fit`` captures anew."""
+        for m in self.MODULES:
+            getattr(self, m).load_state_dict(state["modules"][m])
+        for o in self.OPTIMIZERS:
+            getattr(self, o).load_state_dict(state["optimizers"][o])
+        self.train_step.count.copy_(state["step"])
+        self.generator.set_state(state["generator"])
+        self._graphs.clear()
+
+    def save_checkpoint(self, directory: str, metadata: dict | None = None):
+        """``utils.checkpoint.save_checkpoint`` of ``state_dict()`` at the
+        current update count; returns its path."""
+        from clearvae_torch.utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(directory, self.state_dict(),
+                               step=self.train_step.step, metadata=metadata)
+
+    def restore_checkpoint(self, directory_or_path: str) -> dict:
+        """Load the latest checkpoint of a directory (or the given one)."""
+        from clearvae_torch.utils.checkpoint import (latest_checkpoint,
+                                                     restore_checkpoint)
+
+        path = directory_or_path
+        if os.path.isdir(path):
+            path = latest_checkpoint(path)
+        state = restore_checkpoint(path)
+        self.load_state_dict(state)
+        return state
 
     def _post_train_epoch(self, history: dict):
         """Called with each epoch's {metric: [n_batches]} arrays."""
@@ -250,6 +382,9 @@ class ClearTCVAETrainer(VAETrainerBase):
     optimizer from its module's parameters. ``fit`` returns
     ``factor_d_losses``, one per train step since construction."""
 
+    MODULES = ("model", "factor_cls")
+    OPTIMIZERS = ("optimizer", "factor_optimizer")
+
     def __init__(self, model, factor_cls: FactorCls, optimizers: dict,
                  sim_fn: str, hyperparameter: dict, verbose_period: int = 5,
                  seed: int = 0, mig_backend: str = "auto", device=None):
@@ -269,8 +404,10 @@ class ClearTCVAETrainer(VAETrainerBase):
                                                    contr)
         self.factor_d_losses: list = []
 
-    def _train_noise(self, n: int):
-        return self._draw_eps(n), self._draw_eps(n)
+    def _train_noise(self, n: int, out=None):
+        if out is None:
+            return self._draw_eps(n), self._draw_eps(n)
+        return self._draw_eps(n, out[0]), self._draw_eps(n, out[1])
 
     def _post_train_epoch(self, history: dict):
         self.factor_d_losses.extend(history["factor_d_loss"].tolist())
@@ -283,6 +420,9 @@ class ClearMIMVAETrainer(VAETrainerBase):
     """CLEAR-MIM (reference ClearMIMVAETrainer, trainer.py:781-965).
     ``optimizers`` = {"vae_optim", "mi_estimator_optim"}. ``fit`` returns
     ``(mi_losses, mi_learning_losses)``."""
+
+    MODULES = ("model", "mi_estimator")
+    OPTIMIZERS = ("optimizer", "mi_optimizer")
 
     def __init__(self, model, mi_estimator, optimizers: dict, sim_fn: str,
                  hyperparameter: dict, verbose_period: int = 5, seed: int = 0,
@@ -307,15 +447,22 @@ class ClearMIMVAETrainer(VAETrainerBase):
         self.mi_losses: list = []
         self.mi_learning_losses: list = []
 
-    def _draw_perm(self, n: int):
+    def _draw_perm(self, n: int, out=None):
         if not self.mi_estimator.uses_perm:
             return None
-        return torch.randperm(n, generator=self.generator, device=self.device)
+        if out is None:
+            return torch.randperm(n, generator=self.generator,
+                                  device=self.device)
+        return torch.randperm(n, generator=self.generator, out=out)
 
-    def _train_noise(self, n: int):
-        inner = torch.randn((self.mim_cfg.inner_steps, n, self.model.total_z_dim),
-                            generator=self.generator, device=self.device)
-        return {"eps": self._draw_eps(n), "perm": self._draw_perm(n),
+    def _train_noise(self, n: int, out=None):
+        if out is None:
+            out = {"eps": None, "perm": None, "inner": None}
+        inner = self._randn((self.mim_cfg.inner_steps, n,
+                             self.model.total_z_dim), out["inner"])
+        eps = (self._draw_eps(n) if out["eps"] is None
+               else self._draw_eps(n, out["eps"]))
+        return {"eps": eps, "perm": self._draw_perm(n, out["perm"]),
                 "inner": inner}
 
     def _eval_noise(self, n: int):
@@ -342,7 +489,7 @@ class SimpleCNNTrainer(TrainerCore):
         self.train_step = S.make_cnn_step(self.model, self.optimizer)
         self.logits_fn = S.make_cnn_logits_fn(self.model)
 
-    def _train_noise(self, n: int):
+    def _train_noise(self, n: int, out=None):
         return None
 
     def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):

@@ -24,6 +24,9 @@ import clearvae_torch.models.cnn, clearvae_torch.models.factor
 import clearvae_torch.models.mi_estimators, clearvae_torch.ops.group
 import clearvae_torch.registry, clearvae_torch.native.bindings
 import clearvae_torch.experiments.mig_expr
+import clearvae_torch.serve, clearvae_torch.bench
+import clearvae_torch.utils.checkpoint, clearvae_torch.utils.logging
+import clearvae_torch.utils.visual
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
@@ -57,3 +60,8 @@ def test_entry_point_needs_cuda_or_an_explicit_cpu(monkeypatch):
             (F.get_cnn_trainer, dict(n_class=10))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             factory(**kw)
+    from clearvae_torch.models.vae import VAE
+    from clearvae_torch.serve import InferenceSession
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceSession(VAE(total_z_dim=16))
