@@ -86,7 +86,13 @@ Phases, each fatal on failure:
                 ``fit(start_epoch=1)`` graphed: the uninterrupted graphed
                 fit's epoch 1 within the same bars; ``InferenceSession.
                 from_checkpoint`` on the card: its shapes, and equal to
-                ``from_trainer`` (atol 1e-6). Then eager and graphed steps in
+                ``from_trainer`` (atol 1e-6). Every other step that
+                ``use_scan`` captures is fitted both ways the same way, with
+                equal launches both ways: CLEAR and CLEAR-TC unfused, GVAE,
+                ML-VAE, the CNN, CLEAR-MIM with CLUB, CLUBMean, L1OutUB,
+                VarUB and InfoNCE, and the fused CLEAR trainer with
+                ``style_on_device`` (K3 eager, outside the graph). Then,
+                through ``bench.time_steps``, eager and graphed steps in
                 turns (eager, graphed, graphed, eager; 20 steps a turn): wall,
                 device busy, idle share, kernels a step, images/sec; the
                 fused-loss kernels counted by name in the device trace of 20
@@ -274,15 +280,17 @@ def device_us(fn, n: int = 50):
 
 
 def kernels_per_call(fn, n: int = 10, tries: int = 3) -> float:
-    """Kernels a call of fn launches, by the profiler over n calls. A
-    profile that recorded no kernel at all is the profiler's loss, not a
-    count (fn has run and been checked by then), so it is taken again, up
-    to ``tries`` times; a partial record counts as it is."""
+    """Kernels a call of fn launches, by the profiler over n calls. Every
+    call launches at least one kernel (fn has run and been checked by then,
+    and a wrapper raises on a failed launch), so a profile that recorded
+    fewer kernels than calls is the profiler's loss, not a count: it is
+    taken again, up to ``tries`` times."""
     for _ in range(tries):
         n_k = device_us(fn, n=n)[1]
-        if n_k > 0:
+        if n_k >= 1:
             return n_k
-    fail(f"the profiler recorded no kernel in {tries} profiles of {n} calls")
+    fail(f"the profiler recorded fewer kernels than calls in {tries} "
+         f"profiles of {n} calls")
 
 
 def gpu_name_and_limit() -> str:
@@ -804,13 +812,50 @@ def _graph_runs():
                                         mi_estimator_lr=2e-3))}
 
 
+def _graph_more_runs():
+    """Every other train step that ``fit(use_scan=True)`` captures, each
+    (factory, kwargs, fit kwargs): CLEAR and CLEAR-TC unfused, GVAE and
+    ML-VAE, the CNN, CLEAR-MIM with each other MI estimator, and the fused
+    CLEAR trainer styling on the card (eager styling outside the graph,
+    copied into its static image buffer)."""
+    from clearvae_torch.train.factories import (get_clearmimvae_trainer,
+                                                get_cleartcvae_trainer,
+                                                get_clearvae_trainer,
+                                                get_cnn_trainer,
+                                                get_hierarchical_vae_trainer)
+
+    unfused = {**ADV_COMMON, "hyperparameter": {"fused": False}}
+    hier = {k: ADV_COMMON[k] for k in ("beta", "vae_lr", "z_dim", "seed",
+                                        "verbose_period", "device")}
+    runs = {
+        "clear unfused": (get_clearvae_trainer, {**unfused, "ps": True}, {}),
+        "clear-tc unfused": (get_cleartcvae_trainer,
+                             {**unfused, "la": 1, "factor_cls_lr": 1e-4}, {}),
+        "gvae": (get_hierarchical_vae_trainer,
+                 {**hier, "group_mode": "GVAE"}, {}),
+        "mlvae": (get_hierarchical_vae_trainer,
+                  {**hier, "group_mode": "MLVAE"}, {}),
+        "cnn": (get_cnn_trainer, dict(n_class=10, seed=0, verbose_period=1,
+                                      device="cuda"), {}),
+    }
+    for est in ("CLUB", "CLUBMean", "L1OutUB", "VarUB", "InfoNCE"):
+        runs[f"clear-mim ({est})"] = (
+            get_clearmimvae_trainer,
+            {**ADV_COMMON, "mi_estimator": est, "la": 3,
+             "mi_estimator_lr": 2e-3}, {})
+    runs["clear styled on the card"] = (
+        get_clearvae_trainer, {**ADV_COMMON, "ps": True},
+        {"style_on_device": True})
+    return runs
+
+
 def _graph_fit(factory, kw, train_ds, epochs, **fit_kw):
     """(trainer, {kernel: launches}) of one fit, the counters zeroed just
     before it and read just after."""
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.ops.kernels import style as K3
 
-    trainer = factory(**ADV_COMMON, **kw)
+    trainer = factory(**kw)
     FL.reset_launches()
     K3.reset_launches()
     trainer.fit(epochs, train_ds, batch_size=128, **fit_kw)
@@ -877,61 +922,25 @@ def _serve_check(trainer, ckpt_dir, x):
 
 def _time_steps(trainer, train_ds, tag, gpu, n: int = 20):
     """Eager and graphed steps of one trainer on the same batches, in turns
-    (eager, graphed, graphed, eager): wall ms a step (host clock up to a
-    synchronize), device-busy ms a step and kernels a step (profiler),
-    idle share, images/sec. Each profile is also written as a Chrome trace
-    under .runs/chip_smoke_graph/; the graphed one's device events are where
-    the fused-loss kernels are counted by name."""
-    from clearvae_torch.train import steps as S
-    from clearvae_torch.utils.logging import profile_trace
+    (eager, graphed, graphed, eager), through ``bench.time_steps``, the
+    port's one step timer: wall ms a step, device-busy ms a step, idle
+    share, kernels a step, images/sec, and the kernels by name in the
+    profiled run of each mode (a Chrome trace of each under
+    .runs/chip_smoke_graph/)."""
+    from clearvae_torch.bench import time_steps
 
-    bs = 128
-    ds_key = (id(train_ds), bs, False)
-    trainer.fit(1, train_ds, batch_size=bs, use_scan=True)   # the capture
-    torch.cuda.synchronize()
-    graphed = trainer._graphs[ds_key][1]
-    data, labels = graphed.data, graphed.labels
-    rows = torch.as_tensor(np.random.RandomState(1).permutation(len(labels))
-                           [: n * bs].reshape(n, bs), device=labels.device)
-    eager_epoch = S.make_epoch_fn(trainer.train_step)
-    fns = {"eager": lambda: eager_epoch(data, labels, rows,
-                                        trainer._train_noise),
-           "graphed": lambda: graphed.run(rows)}
-    fns["eager"]()
-    walls = {"eager": [], "graphed": []}
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fns[mode]()
-        torch.cuda.synchronize()
-        walls[mode].append((time.perf_counter() - t0) * 1e3 / n)
-    stats = {}
     traces = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".runs",
-                          "chip_smoke_graph")
-    for mode, fn in fns.items():
-        for _ in range(3):     # a profile with no kernel is the profiler's loss
-            with profile_trace(os.path.join(
-                    traces, f"trace_{tag.split()[0]}_{mode}")) as prof:
-                fn()
-            by_name, counts = _device_kernels(prof, counts=True)
-            if counts:
-                break
-        if not counts:
+                          "chip_smoke_graph", f"trace_{tag.split()[0]}")
+    stats = time_steps(trainer, train_ds, n=n, trace_dir=traces)
+    for mode, r in stats.items():
+        if not r["kernels_by_name"]:
             fail(f"{tag} {mode}: the profiler recorded no kernel")
-        busy = sum(by_name.values()) / 1e3 / n
-        stats[mode] = dict(
-            walls_ms=walls[mode], device_busy_ms=busy,
-            idle_share=[1 - busy / w for w in walls[mode]],
-            kernels_per_step=sum(counts.values()) / n,
-            images_per_sec=[bs * 1e3 / w for w in walls[mode]],
-            fused=({k: v for k, v in counts.items() if "clear_latent_" in k}))
-        print(f"[graph] {tag} {mode} step (B={bs}, {n} steps a turn): wall "
-              f"{'/'.join(f'{w:.3f}' for w in walls[mode])} ms, device busy "
-              f"{busy:.3f} ms, idle share "
-              f"{'/'.join(f'{s:.3f}' for s in stats[mode]['idle_share'])}, "
-              f"{stats[mode]['kernels_per_step']:.1f} kernels/step, images/sec "
-              f"{'/'.join(f'{r:.1f}' for r in stats[mode]['images_per_sec'])}"
-              f"; {gpu}")
+        print(f"[graph] {tag} {mode} step (B=128, {n} steps a turn): wall "
+              f"{'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, device busy "
+              f"{r['device_busy_ms']:.3f} ms, idle share "
+              f"{'/'.join(f'{s:.3f}' for s in r['idle_share'])}, "
+              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
+              f"{'/'.join(f'{i:.1f}' for i in r['images_per_sec'])}; {gpu}")
     return stats
 
 
@@ -939,8 +948,10 @@ def phase_graph(gpu, train_ds, valid_ds, here):
     """The graphed train step (``fit(use_scan=True)``, one captured CUDA
     graph a step) against the eager one, for the fused CLEAR, CLEAR-TC and
     CLEAR-MIM (CLUB-S) trainers on phase 3's data (see the module
-    docstring); returns {kernel: launches} summed over the three graphed
-    fits, each fit's counters zeroed just before it and read after."""
+    docstring), then every other captured step the same way
+    (``_graph_more_runs``); returns {kernel: launches} summed over every
+    graphed fit, each fit's counters zeroed just before it and read
+    after."""
     import shutil
 
     dev = torch.device("cuda")
@@ -952,8 +963,9 @@ def phase_graph(gpu, train_ds, valid_ds, here):
     for name, (factory, kw) in _graph_runs().items():
         torch.backends.cudnn.deterministic = True
         try:
-            eager, le = _graph_fit(factory, kw, train_ds, 2)
-            graphed, lg = _graph_fit(factory, kw, train_ds, 2, use_scan=True)
+            eager, le = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 2)
+            graphed, lg = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 2,
+                                    use_scan=True)
             n_e, n_g = eager.train_step.step, graphed.train_step.step
             if not n_e == n_g == ADV_STEPS:
                 fail(f"{name}: {n_e} eager and {n_g} graphed updates, "
@@ -976,7 +988,8 @@ def phase_graph(gpu, train_ds, valid_ds, here):
             # checkpoint after epoch 0 -> a fresh trainer restores and runs
             # epoch 1 graphed: the uninterrupted graphed fit's epoch 1
             ck = os.path.join(root, name.split()[0])
-            first, _ = _graph_fit(factory, kw, train_ds, 1, use_scan=True,
+            first, _ = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 1,
+                                  use_scan=True,
                                   checkpoint_dir=ck)
             resumed = factory(**ADV_COMMON, **kw)
             resumed.restore_checkpoint(ck)
@@ -994,6 +1007,35 @@ def phase_graph(gpu, train_ds, valid_ds, here):
         finally:
             torch.backends.cudnn.deterministic = det
         trainers[name] = factory(**ADV_COMMON, **kw)
+    for name, (factory, kw, fit_kw) in _graph_more_runs().items():
+        torch.backends.cudnn.deterministic = True
+        try:
+            eager, le = _graph_fit(factory, kw, train_ds, 2, **fit_kw)
+            graphed, lg = _graph_fit(factory, kw, train_ds, 2, use_scan=True,
+                                     **fit_kw)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        n_e, n_g = eager.train_step.step, graphed.train_step.step
+        if not n_e == n_g == ADV_STEPS:
+            fail(f"{name}: {n_e} eager and {n_g} graphed updates, expected "
+                 f"{ADV_STEPS}")
+        diff = _same_training(f"{name} graphed vs eager", eager, graphed)
+        fused = kw.get("hyperparameter", {}).get("fused", False)
+        kind = name.split()[0]
+        k1 = n_g if fused and kind == "clear" else 0
+        k2 = n_g if fused and kind != "clear" else 0
+        want = {"clear_latent_fwdgrad": k1, "clear_latent_bwd": k1,
+                "snn_fwd": k2, "snn_bwd": k2}
+        styled = fit_kw.get("style_on_device", False)
+        if (lg != le or {k: lg[k] for k in want} != want
+                or (lg["style_batch"] > 0) != styled):
+            fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
+                 f"expected {want}, K3 {'on' if styled else 'off'}")
+        for k in total:
+            total[k] += lg[k]
+        print(f"[graph] {name}: {n_g} graphed updates == {n_e} eager; "
+              f"histories and final state within phase 5's bars, max abs "
+              f"diff {diff:.3e} (cudnn.deterministic); launches {lg}")
     per_step = {"clear": {"clear_latent_fwdgrad_kernel": 1,
                           "clear_latent_bwd_kernel": 1}}
     for name in ("clear-tc", "clear-mim (CLUB-S)"):   # K2f and K2b
@@ -1001,7 +1043,7 @@ def phase_graph(gpu, train_ds, valid_ds, here):
     for name, trainer in trainers.items():
         stats = _time_steps(trainer, train_ds, name, gpu)
         seen = {}
-        for k, v in stats["graphed"]["fused"].items():
+        for k, v in stats["graphed"]["kernels_by_name"].items():
             for kname in per_step["clear"]:
                 if kname in k:
                     seen[kname] = seen.get(kname, 0) + v

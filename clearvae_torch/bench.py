@@ -1,24 +1,25 @@
 """Training throughput of the port on one card: the flagship, CLEAR-TC and
 CLEAR-MIM rows of the repository's ``bench.py``, each eager and graphed.
 
-    python -m clearvae_torch.bench [--n_images 8192] [--epochs 2]
+    python -m clearvae_torch.bench [--steps 20]
 
 Flagship configuration (reference run_styledmnist_downstream_expr.py:
 231-238): Styled-MNIST CLEAR-VAE, z_dim = 16, batch 128, β = 1/8, α = 100,
 τ = 0.1, Adam 5e-4, cosine SNN, the latent losses fused (K1; K2f and K2b
 for the TC and MIM c_loss). CLEAR-TC: λ = 1, factor Adam 1e-4. CLEAR-MIM:
 CLUB-S, λ = 3, estimator Adam 2e-3. Each trainer comes from its factory
-(seed 0) and fits synthetic Styled-MNIST digits, styled once on the card;
-each row is timed eagerly (``fit``) and graphed (``fit(use_scan=True)``):
-the first epoch warms up (and captures), the later ones are timed on the
-host clock up to a device synchronize.
+(seed 0) and trains on synthetic Styled-MNIST digits, styled once on the
+card. Each row is timed by ``time_steps``, the port's one step timer
+(``chip_smoke.py`` and ``experiments/kernel_ab.py`` time with it too):
+eager and graphed steps in turns on the same batches.
 
-Prints one JSON line: per row and mode, images/sec and the FLOP share, the
-analytic training FLOPs a second over the card's fp32 peak (TF32 stays off,
-as in ``chip_smoke.py``, so the convolutions run on the fp32 units). The
-FLOP count is ``bench.py``'s (``clear_vae_train_flops_per_image``), copied
-here because the port imports nothing of the JAX package's files. Needs a
-CUDA card; imports nothing of JAX.
+Prints one JSON line: per row and mode, images/sec and the FLOP share per
+turn (the analytic training FLOPs a second over the card's fp32 peak; TF32
+stays off, as in ``chip_smoke.py``, so the convolutions run on the fp32
+units), the step's walls, device-busy time, idle share and kernels a step.
+The FLOP count is ``bench.py``'s (``clear_vae_train_flops_per_image``),
+copied here because the port imports nothing of the JAX package's files.
+Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -96,30 +97,113 @@ ROWS = {
 }
 
 
-def measure_row(kind: str, ds, use_scan: bool, epochs: int,
-                device: str) -> float:
-    """images/sec of the row's fit, epochs 2..``epochs`` after a warm-up
-    epoch."""
-    import torch
-
+def make_trainer(kind: str, device: str = "cuda"):
+    """The row's trainer from its factory (seed 0)."""
     from clearvae_torch.train import factories as TF
 
     name, kw = ROWS[kind]
-    t = getattr(TF, name)(**COMMON, **kw, device=device)
-    t.fit(1, ds, batch_size=BATCH, use_scan=use_scan)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    t.fit(epochs - 1, ds, batch_size=BATCH, use_scan=use_scan, start_epoch=1)
-    torch.cuda.synchronize()
-    return (epochs - 1) * (len(ds) // BATCH) * BATCH / (
-        time.perf_counter() - t0)
+    return getattr(TF, name)(**COMMON, **kw, device=device)
+
+
+def device_kernels(prof) -> tuple[dict, dict, float]:
+    """({kernel name: launches}, {kernel name: device us}, device-busy us)
+    of a profile. Device copies and fills are busy time but not kernels.
+    Host ranges that the profiler mirrors onto the device timeline (a
+    record_function range such as Optimizer.step#Adam.step spans kernels)
+    are neither."""
+    from torch.autograd import DeviceType
+
+    host = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    counts: dict = {}
+    us: dict = {}
+    busy = 0.0
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.is_user_annotation
+                or e.name in host):
+            continue
+        busy += e.time_range.elapsed_us()
+        if not e.name.startswith(("Memcpy", "Memset")):
+            counts[e.name] = counts.get(e.name, 0) + 1
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return counts, us, busy
+
+
+TURNS = ("eager", "graphed", "graphed", "eager")
+
+
+def time_steps(trainer, ds, n: int = 20,
+               trace_dir: str | None = None) -> dict:
+    """The port's step timer: ``n`` train steps of ``trainer`` on the same
+    ``n`` batches of ``BATCH`` images of ``ds`` (a fixed permutation of the
+    materialized path's resident data), eager (``make_epoch_fn``, the loop
+    of ``fit``) and graphed (``make_graphed_epoch_fn``, one replay a step)
+    where the package has it. After one warm-up run of each mode (the
+    graphed one's warm-up steps and its capture), the modes run in
+    ``TURNS``, each turn timed on the host clock up to a device
+    synchronize; then one profiled run of each mode (written as a Chrome
+    trace under ``trace_dir``).
+
+    Per mode: ``walls_ms`` a step (per turn), ``wall_ms`` (their least),
+    ``device_busy_ms`` a step, ``idle_share`` (1 - busy / wall, per turn),
+    ``kernels_per_step``, ``images_per_sec`` (per turn) and
+    ``kernels_by_name`` (launches in the profiled run). It uses only what
+    older checkouts of the package also have (they time eagerly only), so
+    ``experiments/kernel_ab.py`` times a parent tree with the same code."""
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from clearvae_torch.train import steps as S
+
+    data, labels = trainer._device_data(ds)
+    rows = torch.as_tensor(np.random.RandomState(1).permutation(len(labels))
+                           [: n * BATCH].reshape(n, BATCH), device=labels.device)
+    eager = S.make_epoch_fn(trainer.train_step)
+    fns = {"eager": lambda: eager(data, labels, rows, trainer._train_noise)}
+    if hasattr(S, "make_graphed_epoch_fn"):
+        graphed = S.make_graphed_epoch_fn(trainer.train_step, data, labels,
+                                          BATCH, trainer._train_noise)
+        fns["graphed"] = lambda: graphed.run(rows)
+    for fn in fns.values():
+        fn()
+    walls = {mode: [] for mode in fns}
+    for mode in (m for m in TURNS if m in fns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[mode]()
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / n)
+    out = {}
+    for mode, fn in fns.items():
+        for _ in range(3):     # a profile with no kernel is the profiler's loss
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts, _, busy_us = device_kernels(prof)
+            if counts:
+                break
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir,
+                                                  f"trace_{mode}.json"))
+        busy = busy_us / 1e3 / n
+        out[mode] = dict(
+            walls_ms=walls[mode], wall_ms=min(walls[mode]),
+            device_busy_ms=busy,
+            idle_share=[1 - busy / w for w in walls[mode]],
+            kernels_per_step=sum(counts.values()) / n,
+            images_per_sec=[BATCH * 1e3 / w for w in walls[mode]],
+            kernels_by_name=counts)
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n_images", type=int, default=8192)
-    ap.add_argument("--epochs", type=int, default=3,
-                    help="the first warms up; the rest are timed")
+    ap.add_argument("--steps", type=int, default=20,
+                    help="steps a turn (eager, graphed, graphed, eager)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -134,7 +218,8 @@ def main(argv=None):
         raise SystemExit("clearvae_torch.bench measures a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    ds = make_styled_mnist(*synthetic_mnist(args.n_images, seed=0), seed=0)
+    ds = make_styled_mnist(*synthetic_mnist(args.steps * BATCH, seed=0),
+                           seed=0)
     ds.materialize(dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -143,15 +228,18 @@ def main(argv=None):
     for kind in ROWS:
         flops = clear_vae_train_flops_per_image(variant=kind)
         row = {"flops_per_image": flops}
-        for mode, use_scan in (("eager", False), ("graphed", True)):
-            ips = measure_row(kind, ds, use_scan, args.epochs, args.device)
-            row[mode] = {"images_per_sec": ips,
-                         "flop_share": ips * flops / PEAK_FP32_FLOPS}
+        for mode, r in time_steps(make_trainer(kind, args.device), ds,
+                                  n=args.steps).items():
+            row[mode] = {
+                "images_per_sec": r["images_per_sec"],
+                "flop_share": [i * flops / PEAK_FP32_FLOPS
+                               for i in r["images_per_sec"]],
+                **{k: r[k] for k in ("walls_ms", "device_busy_ms",
+                                     "idle_share", "kernels_per_step")}}
         configs[kind] = row
     print(json.dumps({
         "metric": "images_per_sec", "batch": BATCH, "z_dim": Z_DIM,
-        "n_images": args.n_images, "timed_epochs": args.epochs - 1,
-        "peak_fp32_flops": PEAK_FP32_FLOPS,
+        "steps": args.steps, "peak_fp32_flops": PEAK_FP32_FLOPS,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": card[0] if card else None, "configs": configs}))
 

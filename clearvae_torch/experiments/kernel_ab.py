@@ -16,10 +16,11 @@ checkout's build directory, and prints one JSON line:
 - ``styling``: one ``corruptions.style_batch`` call on a B = 128 batch of
   the six ``EXPERIMENT_STYLES``;
 - ``step eager``: the fused CLEAR train step of ``get_clearvae_trainer`` at
-  the flagship widths (B = 128, z = 16), 20 steps through the eager epoch
-  runner (gather, noise, step); and ``step graphed``, the same 20 steps
+  the flagship widths (B = 128, z = 16), 20 steps a turn through the eager
+  epoch runner (gather, noise, step); and ``step graphed``, the same steps
   through ``make_graphed_epoch_fn`` (one replay of the captured step
-  each), where the root has ``fit(use_scan=...)``;
+  each), where the root has it. Both are timed by this checkout's
+  ``bench.time_steps`` (eager, graphed, graphed, eager);
 
 each with its profiler device µs, kernels and device copies a call, CUDA
 event ms a call, and for styling the host syncs a call (torch's sync debug
@@ -32,6 +33,7 @@ every code 0..7 at severities 1-5 on digits and on noise at H = 17, 28 and
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -125,48 +127,30 @@ def k3_outputs(K3, torch) -> dict:
     return outs
 
 
-def measure_steps(torch, n: int = 20, bs: int = 128) -> dict:
-    """Wall ms a step (the best of three runs of n steps, host clock up to a
-    synchronize), device-busy ms a step (profiler, one more run), idle
-    share, kernels and copies a step and images/sec of the fused CLEAR
-    train step, eager and, where the tree has it, graphed."""
-    import inspect
+def _bench():
+    """This checkout's ``clearvae_torch/bench.py``, loaded from its file:
+    the step timer is this tree's while the ``clearvae_torch`` it times is
+    the root's."""
+    spec = importlib.util.spec_from_file_location(
+        "_kernel_ab_bench",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                     "bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench
 
+
+def measure_steps(n: int = 20) -> dict:
+    """The fused CLEAR train step of ``get_clearvae_trainer`` at the
+    flagship widths, timed by ``bench.time_steps``: eager and, where the
+    root has it, graphed, in turns."""
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist
-    from clearvae_torch.train import factories as TF
-    from clearvae_torch.train import steps as S
-    from clearvae_torch.train import trainers as TR
 
-    ds = make_styled_mnist(*synthetic_mnist(n * bs, seed=0), seed=0)
-    t = TF.get_clearvae_trainer(beta=1 / 8, ps=True, vae_lr=5e-4, z_dim=16,
-                                alpha=100, temperature=0.1, seed=0,
-                                verbose_period=10 ** 9,
-                                hyperparameter={"fused": True}, device="cuda")
-    data, labels = t._device_data(ds)
-    rows = torch.arange(n * bs, device=data.device).view(n, bs)
-    eager = S.make_epoch_fn(t.train_step)
-    runs = {"step eager": lambda: eager(data, labels, rows, t._train_noise)}
-    if "use_scan" in inspect.signature(TR.TrainerCore.fit).parameters:
-        graphed = S.make_graphed_epoch_fn(t.train_step, data, labels, bs,
-                                          t._train_noise)
-        runs["step graphed"] = lambda: graphed.run(rows)
-    out = {}
-    for name, fn in runs.items():
-        fn()          # warm-up (graphed: its warm-up steps and the capture)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / n)
-        us, kernels, copies = _profile(fn, n=1)
-        wall, busy = min(walls), us / 1e3 / n
-        out[name] = dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
-                         idle_share=1 - busy / wall, kernels=kernels / n,
-                         copies=copies / n, images_per_sec=bs * 1e3 / wall)
-    return out
+    bench = _bench()
+    ds = make_styled_mnist(*synthetic_mnist(n * bench.BATCH, seed=0), seed=0)
+    steps = bench.time_steps(bench.make_trainer("clear"), ds, n=n)
+    return {f"step {mode}": r for mode, r in steps.items()}
 
 
 def measure(root: str, save: str | None = None) -> dict:
@@ -227,7 +211,7 @@ def measure(root: str, save: str | None = None) -> dict:
     out["styling B=128"] = rec
     torch.backends.cudnn.allow_tf32 = False       # as chip_smoke.py runs
     torch.backends.cuda.matmul.allow_tf32 = False  # the trainers
-    out.update(measure_steps(torch))
+    out.update(measure_steps())
     if save:
         torch.save(k3_outputs(K3, torch), save)
     return out

@@ -18,9 +18,9 @@ Each has a plain PyTorch twin here (``*_plain``) that repeats its arithmetic,
 masking constants included. A wrapper launches its kernel for a CUDA tensor
 (or raises) and takes the plain twin only for a CPU tensor. ``LAUNCHES``
 counts kernel launches, one per wrapper call that reaches the card. A call
-made while a CUDA graph is being captured launches nothing: the captured
-step (``train.steps.GraphedEpoch``) takes its counts off again and adds
-them on every replay, which is where those kernels launch.
+made while a CUDA graph is being captured launches nothing: the graph
+launches the kernel on every replay, and ``counts.GraphLaunches`` moves
+the count there.
 
 Semantics equal ``vae_loss``'s KL halves and ``contrastive_loss(sim_fn=
 'cosine', loss_name='snn')``; ``fused_contrastive_loss`` routes other

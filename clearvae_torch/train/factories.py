@@ -9,10 +9,12 @@ losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
 of c_loss for CLEAR-TC and CLEAR-MIM). ``trainer_from_config`` builds one
 of them from a typed ``config.ClearVAEConfig``.
 
-Adam is built with ``capturable=True`` on a CUDA device, so that one
-optimizer serves the eager step and the captured one
-(``fit(use_scan=True)``) with the same update kernels. torch refuses
-``capturable`` for CPU parameters, so it stays off there.
+On a CUDA device Adam is built ``fused`` and ``capturable``: one update
+kernel for all of a module's parameters, its count on the device, so that
+one optimizer serves the eager step and the captured one
+(``fit(use_scan=True)``) with the same kernels. On the CPU (tests) it is
+torch's default Adam, which the JAX package's optax.adam is checked
+against.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ def _seeded(seed: int, build):
 
 
 def _adam(lr: float, device):
-    return functools.partial(
-        torch.optim.Adam, lr=lr,
-        capturable=resolve_device(device).type == "cuda")
+    cuda = resolve_device(device).type == "cuda"
+    return functools.partial(torch.optim.Adam, lr=lr, fused=cuda or None,
+                             capturable=cuda)
 
 
 def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",

@@ -29,7 +29,7 @@ from torch.nn import functional as F
 
 from clearvae_torch.ops import losses as L
 from clearvae_torch.ops.group import grouped_kl
-from clearvae_torch.ops.kernels import fused_loss as FL
+from clearvae_torch.ops.kernels.counts import GraphLaunches
 from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
                                                    fused_contrastive_loss)
 from clearvae_torch.ops.schedules import logistic_anneal
@@ -473,9 +473,9 @@ class GraphedEpoch:
     stream (lazy state such as Adam's moments is made there), the next row
     is captured and then replayed, like every later one: as many updates as
     the eager loop makes. A capture failure raises; there is no eager
-    fallback. The fused-loss launches counted during the capture are taken
-    off ``fused_loss.LAUNCHES`` and added back on every replay. On the CPU (tests) the
-    same body runs uncaptured on every row.
+    fallback. ``ops.kernels.counts.GraphLaunches`` moves the launches that
+    the kernels' wrappers count during the capture to the replays. On the
+    CPU (tests) the same body runs uncaptured on every row.
     """
 
     WARMUP = 3
@@ -496,7 +496,7 @@ class GraphedEpoch:
         self.keys = None
         self.graph = None
         self.out = None
-        self.launches = None     # kernel launches of one replay
+        self.launches = GraphLaunches()
         self.warm = 0
 
     def _body(self):
@@ -514,23 +514,19 @@ class GraphedEpoch:
         self.noise = self.draw_noise(len(row), self.noise)
 
     def _capture(self):
-        before = dict(FL.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with self.launches.capture(), torch.cuda.graph(graph):
                 out = self._body()
         except Exception as exc:
             raise RuntimeError(
                 f"capturing the train step {type(self.step).__name__} in a "
                 f"CUDA graph failed: {exc}") from exc
-        self.launches = {k: v - before[k] for k, v in FL.LAUNCHES.items()}
-        FL.LAUNCHES.update(before)
         self.graph, self.out = graph, out
 
     def _replay(self):
         self.graph.replay()
-        for k, v in self.launches.items():
-            FL.LAUNCHES[k] += v
+        self.launches.replay()
         return self.out
 
     def _warm_up(self):

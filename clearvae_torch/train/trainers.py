@@ -141,7 +141,7 @@ class TrainerCore:
         return run
 
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
-            use_scan: bool | None = None, checkpoint_dir: str | None = None,
+            use_scan: bool = False, checkpoint_dir: str | None = None,
             checkpoint_every: int = 10, logger=None,
             style_on_device: bool = False, start_epoch: int = 0):
         """Train for ``epochs`` epochs from ``start_epoch``, which keys the
@@ -149,10 +149,10 @@ class TrainerCore:
 
         ``use_scan=True`` runs each batch as one replay of the train step
         captured in a CUDA graph (``S.make_graphed_epoch_fn``): the same
-        updates from the same noise, one dispatch a step. ``None`` (the
-        default) is the eager loop here, where the JAX package turns its
-        scan on: the eager and graphed steps are to be measured against
-        each other on the card before the default moves.
+        updates from the same noise, one dispatch a step. The default is
+        the eager loop, where the JAX package turns its scan on by default:
+        moving it would move the downstream runner and the sweep onto the
+        graph too, a change of its own.
 
         With ``checkpoint_dir`` the trainer state is saved every
         ``checkpoint_every`` epochs and at the end; with ``logger``

@@ -142,3 +142,35 @@ def test_restore_between_graphed_fits_drops_the_graph(tmp_path):
         np.testing.assert_array_equal(t.history[-1][k], hist1[k], err_msg=k)
     for k, v in t.model.state_dict().items():
         assert torch.equal(v, after_epoch1[k]), k
+
+
+def test_graph_launches_move_the_capture_counts_to_the_replays():
+    """What the wrappers count during a capture is taken off the counters
+    and added back once per replay; a capture that raises leaves the
+    counters as they were."""
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.ops.kernels.counts import GraphLaunches
+
+    FL.reset_launches()
+    K3.reset_launches()
+    FL.LAUNCHES["snn_fwd"] = 5
+    gl = GraphLaunches()
+    with gl.capture():
+        FL.LAUNCHES["snn_fwd"] += 2
+        FL.LAUNCHES["snn_bwd"] += 1
+        K3.LAUNCHES["style"] += 1
+    assert FL.LAUNCHES["snn_fwd"] == 5 and FL.LAUNCHES["snn_bwd"] == 0
+    assert K3.LAUNCHES["style"] == 0
+    for _ in range(3):
+        gl.replay()
+    assert FL.LAUNCHES["snn_fwd"] == 11 and FL.LAUNCHES["snn_bwd"] == 3
+    assert K3.LAUNCHES["style"] == 3
+    assert FL.LAUNCHES["clear_latent_fwdgrad"] == 0
+    with pytest.raises(RuntimeError):
+        with GraphLaunches().capture():
+            FL.LAUNCHES["clear_latent_bwd"] += 1
+            raise RuntimeError("capture failed")
+    assert FL.LAUNCHES["clear_latent_bwd"] == 0
+    FL.reset_launches()
+    K3.reset_launches()
