@@ -25,44 +25,52 @@ Phases, each fatal on failure:
                 ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
                 β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
                 epochs on synthetic Styled-MNIST of the six styles, styled
-                once by ``materialize`` (K3) → ``evaluate``. The launch
-                counters are zeroed just before and read just after (K1's
-                forward and backward kernels once per train step); one
-                step is also checked fused against unfused on the card. Then
-                a train step is timed and profiled: wall and device-busy ms
+                once by ``materialize`` (K3) → ``evaluate``, both as users
+                call them: their default, the captured CUDA graph. The
+                launch counters are zeroed just before and read just after
+                (K1's forward and backward kernels once per train step, K2f
+                twice per eval batch, counted by replay); one step is also
+                checked fused against unfused on the card. Then an eager
+                train step is timed and profiled: wall and device-busy ms
                 per step, idle share, kernels per step.
 5. adversarial — CLEAR-TC and CLEAR-MIM (CLUB-S) at the flagship widths
                 through ``get_cleartcvae_trainer`` / ``get_clearmimvae_trainer``
                 with ``hyperparameter={"fused": True}`` (λ = 1, factor Adam
                 1e-4; λ = 3, estimator Adam 2e-3, 5 inner steps) → ``fit`` for
-                2 epochs on phase 3's data → ``evaluate``. Each run's launch
-                counters are zeroed before and read after: K2f (c_loss
-                forward) and K2b (its backward) once per train step, K1
-                never; the eval is unfused, as in JAX. One step of each is
-                checked fused against unfused on the card, and a train step
-                of each is timed and profiled.
+                2 epochs on phase 3's data → ``evaluate`` (graphed, the
+                default). Each run's launch counters are zeroed before and
+                read after: K2f (c_loss forward) and K2b (its backward) once
+                per train step, by replay, K1 never; the eval is unfused, as
+                in JAX. One step of each is checked fused against unfused on
+                the card, and an eager train step of each is timed and
+                profiled.
 4. downstream — the Styled-MNIST downstream experiment through its entry
                 point, ``styledmnist_downstream.main`` with
                 ``--style_on_device --k_min 5 --k_max 5``: all seven zoo
                 entries (baseline CNN, GVAE, ML-VAE, CLEAR, CLEAR-TC,
-                CLEAR-MIM with L1OutUB and with CLUB-S) style every batch on
-                the device (K3) and validate; the VAEs' probes encode through
-                the fused style→encode pass, the CNN classifies through its
-                fused style→logits pass, and the result JSON is written.
+                CLEAR-MIM with L1OutUB and with CLUB-S) fit and validate
+                through their captured graphs (the default), every batch
+                styled inside them (K3, zigzag, canny); the VAEs' probes
+                encode through the fused style→encode pass and train by
+                replaying the captured probe step, the CNN classifies
+                through its fused style→logits pass, and the result JSON is
+                written.
                 Width is the flagship's; depth is cut (20,000 train / 4,000
                 test synthetic digits, 2 VAE, CNN and probe epochs). K3's
-                launches must equal one per styled batch and chunk and
-                severity group, which the phase counts itself; the zoo is
-                unfused, so K1/K2f/K2b must not launch. Then a styled CLEAR
-                train step is profiled: K3's and styling's share of it, and
-                styling's kernels and host syncs a batch.
+                launches, by replay inside the graphs, must equal one per
+                styled batch and chunk and severity group, which the phase
+                counts itself; the zoo is unfused, so K1/K2f/K2b must not
+                launch. Then a styled CLEAR train step is profiled, eager
+                and graphed: K3's and styling's share of it, and styling's
+                kernels and host syncs a batch.
 
 6. mig        — the Styled-MNIST MIG/ELBO sweep through its entry point,
                 ``mig_expr.main`` at the flagship widths (z = 16, batch 128,
                 τ = 0.1, α = 100, β = 1/8) with ``--mig_backend auto``: all
                 eight zoo entries (clear-ps, clear-neg, bvae, clear-tc, two
                 clear-mim, mlvae, gvae) fit, validate and test on
-                materialized data (K3 in ``materialize``). Depth is cut
+                materialized data (K3 in ``materialize``), through their
+                captured graphs (the default). Depth is cut
                 (12,000 synthetic digits: 8,000 / 2,000 / 2,000; 1 epoch).
                 The CSV must hold the eight rows in the JAX order, every
                 value finite; "auto" must resolve to the native C++ MIG
@@ -73,31 +81,43 @@ Phases, each fatal on failure:
                 (the zoo is unfused). A second call of the same command
                 must train nothing and rewrite the same CSV.
 
-7. graph      — the captured train step, ``fit(use_scan=True)``, against the
-                eager one on phase 3's data: the fused CLEAR, CLEAR-TC and
+7. graph      — the captured steps, the default of ``fit`` and
+                ``evaluate``, against the eager loops
+                (``use_scan=False``) on phase 3's data, under
+                ``cudnn.deterministic``: the fused CLEAR, CLEAR-TC and
                 CLEAR-MIM (CLUB-S) trainers fit 2 epochs each way from the
-                same seed under ``cudnn.deterministic``: equal update counts,
-                histories and final state within phase 5's fused-vs-unfused
-                bars (the max abs difference printed); K1 forward = K1
-                backward = 126 on the graphed CLEAR fit and K2f = K2b = 126 on
-                each graphed TC/MIM fit, counted by replay (each fit's
+                same seed: equal update counts, and histories and final
+                state equal (max abs difference 0.0); K1 forward = K1
+                backward = 126 on the graphed CLEAR fit and K2f = K2b = 126
+                on each graphed TC/MIM fit, counted by replay (each fit's
                 counters zeroed just before and read after). A checkpoint
                 after epoch 0, restored into a fresh trainer, then
                 ``fit(start_epoch=1)`` graphed: the uninterrupted graphed
-                fit's epoch 1 within the same bars; ``InferenceSession.
-                from_checkpoint`` on the card: its shapes, and equal to
-                ``from_trainer`` (atol 1e-6). Every other step that
-                ``use_scan`` captures is fitted both ways the same way, with
-                equal launches both ways: CLEAR and CLEAR-TC unfused, GVAE,
-                ML-VAE, the CNN, CLEAR-MIM with CLUB, CLUBMean, L1OutUB,
-                VarUB and InfoNCE, and the fused CLEAR trainer with
-                ``style_on_device`` (K3 eager, outside the graph). Then,
-                through ``bench.time_steps``, eager and graphed steps in
-                turns (eager, graphed, graphed, eager; 20 steps a turn): wall,
-                device busy, idle share, kernels a step, images/sec; the
-                fused-loss kernels counted by name in the device trace of 20
-                replays (K1: one forward and one backward kernel a step;
-                TC/MIM: K2f and K2b, two launches of the forward kernel).
+                fit's epoch 1; ``InferenceSession.from_checkpoint`` on the
+                card: its shapes, and equal to ``from_trainer`` (atol
+                1e-6). Every other step that ``fit`` captures is fitted
+                both ways the same way, with equal launches both ways:
+                CLEAR and CLEAR-TC unfused, GVAE, ML-VAE, the CNN,
+                CLEAR-MIM with CLUB, CLUBMean, L1OutUB, VarUB and InfoNCE,
+                and the fused CLEAR trainer with ``style_on_device``, K3,
+                zigzag and canny inside its graph: K3 = 126 by replay, and
+                an epoch of its replays runs under
+                ``torch.cuda.set_sync_debug_mode("error")`` (no
+                synchronizing call between the first and the last replay)
+                and K3 is found by name in the device trace of 20 replays,
+                exactly once between each replay's K1 forward kernel and the
+                one before it (a 21st replay opens the trace and is not
+                inspected). Then ``evaluate`` graphed against eager: the
+                fused CLEAR trainer materialized (K2f = 2 a batch by
+                replay) and styled (K3 = 1 a batch), GVAE with
+                ``with_evidence_acc``, each with a ragged tail: MIG, MSE and
+                every per-batch mean equal. Then ``epochs_per_scan=2``: one
+                history block of the last batch of each epoch, equal to the
+                one-step graph's fit exactly. Then, through
+                ``bench.time_steps``, eager and graphed steps in turns
+                (wall, device busy, idle share, kernels a step,
+                images/sec) and the fused-loss kernels counted by name in
+                the device trace of 20 replays.
 
 Phases run in the order 1, 2, 3, 5, 7, 4, 6 (phases 5 and 7 train on phase
 3's data).
@@ -265,11 +285,11 @@ def bound(name: str, b: int, z: int, label, ps: bool):
 def device_us(fn, n: int = 50):
     """(device us per call, kernels per call) of fn from torch.profiler:
     the summed durations of the kernels (not copies) that n calls launched."""
-    from torch.profiler import ProfilerActivity, profile
+    from clearvae_torch.bench import profile_window
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -648,7 +668,7 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
     unprofiled wall, kernels per step, the fused-loss kernels' (K1 forward
     and backward, K2f and K2b, all named clear_latent_*) device ms and
     share, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    from clearvae_torch.bench import profile_window
 
     data, labels = trainer._device_data(train_ds)
     idx = torch.arange(bs, device=data.device)
@@ -663,7 +683,7 @@ def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
 
     steps()  # warm-up
     wall_ms = steps()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         prof_wall_ms = steps()
     by_name, n_kernels = _device_kernels(prof)
     if not by_name:
@@ -816,8 +836,8 @@ def _graph_more_runs():
     """Every other train step that ``fit(use_scan=True)`` captures, each
     (factory, kwargs, fit kwargs): CLEAR and CLEAR-TC unfused, GVAE and
     ML-VAE, the CNN, CLEAR-MIM with each other MI estimator, and the fused
-    CLEAR trainer styling on the card (eager styling outside the graph,
-    copied into its static image buffer)."""
+    CLEAR trainer styling on the card (K3, zigzag and canny inside the
+    graph)."""
     from clearvae_torch.train.factories import (get_clearmimvae_trainer,
                                                 get_cleartcvae_trainer,
                                                 get_clearvae_trainer,
@@ -863,30 +883,24 @@ def _graph_fit(factory, kw, train_ds, epochs, **fit_kw):
     return trainer, {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"]}
 
 
-def _same_training(tag, a, b, a_epochs=None):
-    """Fails unless trainer b's loss histories and final state are within
-    phase 5's fused-vs-unfused bars of a's (metrics rtol 1e-4, atol 1e-5;
-    the VAE's parameters max(1e-3·max|w|, 1.2e-3); the second player's
-    rtol 1e-4, atol 1e-5); returns the max abs difference over all of
-    them. ``a_epochs`` picks the epochs of a's history that b ran."""
+def _same_training(tag, a, b, a_epochs=None, histories=True):
+    """Fails unless trainer b's loss histories (with ``histories``) and
+    final state equal a's (every module's state, max abs difference 0.0);
+    returns that difference. ``a_epochs`` picks the epochs of a's history
+    that b ran."""
     hist_a = a.history if a_epochs is None else a.history[a_epochs]
-    if len(hist_a) != len(b.history):
+    if histories and len(hist_a) != len(b.history):
         fail(f"{tag}: {len(hist_a)} against {len(b.history)} epochs")
     worst = 0.0
-    for e, (ha, hb) in enumerate(zip(hist_a, b.history)):
+    for ha, hb in zip(hist_a, b.history if histories else []):
         for k, v in ha.items():
-            worst = max(worst, check_close(
-                f"{tag}: epoch {e} {k}", torch.as_tensor(hb[k]),
-                torch.as_tensor(v), rtol=1e-4, atol=1e-5))
+            worst = max(worst, float(np.abs(hb[k] - v).max()))
     for m in a.MODULES:
         sa, sb = getattr(a, m).state_dict(), getattr(b, m).state_dict()
         for k, v in sa.items():
-            err = float((sb[k] - v).abs().max())
-            worst = max(worst, err)
-            bar = (max(1e-3 * float(v.abs().max()), 1.2e-3) if m == "model"
-                   else 1e-5 + 1e-4 * float(v.abs().max()))
-            if err > bar:
-                fail(f"{tag}: {m} {k} off by {err:.3e} (bar {bar:.3e})")
+            worst = max(worst, float((sb[k].double() - v.double()).abs().max()))
+    if worst != 0.0:
+        fail(f"{tag}: histories or final state differ by up to {worst:.3e}")
     return worst
 
 
@@ -963,9 +977,10 @@ def phase_graph(gpu, train_ds, valid_ds, here):
     for name, (factory, kw) in _graph_runs().items():
         torch.backends.cudnn.deterministic = True
         try:
-            eager, le = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 2)
+            eager, le = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 2,
+                                   use_scan=False)
             graphed, lg = _graph_fit(factory, {**ADV_COMMON, **kw}, train_ds, 2,
-                                    use_scan=True)
+                                     use_scan=True)
             n_e, n_g = eager.train_step.step, graphed.train_step.step
             if not n_e == n_g == ADV_STEPS:
                 fail(f"{name}: {n_e} eager and {n_g} graphed updates, "
@@ -982,9 +997,8 @@ def phase_graph(gpu, train_ds, valid_ds, here):
             for k in total:
                 total[k] += lg[k]
             print(f"[graph] {name}: {n_g} graphed updates == {n_e} eager; "
-                  f"histories and final state within phase 5's bars, max abs "
-                  f"diff {diff:.3e} (cudnn.deterministic); launches by replay "
-                  f"{lg}")
+                  f"histories and final state equal, max abs diff {diff:.3e} "
+                  f"(cudnn.deterministic); launches by replay {lg}")
             # checkpoint after epoch 0 -> a fresh trainer restores and runs
             # epoch 1 graphed: the uninterrupted graphed fit's epoch 1
             ck = os.path.join(root, name.split()[0])
@@ -1007,10 +1021,14 @@ def phase_graph(gpu, train_ds, valid_ds, here):
         finally:
             torch.backends.cudnn.deterministic = det
         trainers[name] = factory(**ADV_COMMON, **kw)
+        if name == "clear":
+            clear_graphed = graphed
+    more = {}
     for name, (factory, kw, fit_kw) in _graph_more_runs().items():
         torch.backends.cudnn.deterministic = True
         try:
-            eager, le = _graph_fit(factory, kw, train_ds, 2, **fit_kw)
+            eager, le = _graph_fit(factory, kw, train_ds, 2, use_scan=False,
+                                   **fit_kw)
             graphed, lg = _graph_fit(factory, kw, train_ds, 2, use_scan=True,
                                      **fit_kw)
         finally:
@@ -1027,15 +1045,25 @@ def phase_graph(gpu, train_ds, valid_ds, here):
         want = {"clear_latent_fwdgrad": k1, "clear_latent_bwd": k1,
                 "snn_fwd": k2, "snn_bwd": k2}
         styled = fit_kw.get("style_on_device", False)
-        if (lg != le or {k: lg[k] for k in want} != want
-                or (lg["style_batch"] > 0) != styled):
+        want["style_batch"] = n_g if styled else 0   # one severity group
+        if lg != le or {k: lg[k] for k in want} != want:
             fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
-                 f"expected {want}, K3 {'on' if styled else 'off'}")
+                 f"expected {want}")
         for k in total:
             total[k] += lg[k]
         print(f"[graph] {name}: {n_g} graphed updates == {n_e} eager; "
-              f"histories and final state within phase 5's bars, max abs "
-              f"diff {diff:.3e} (cudnn.deterministic); launches {lg}")
+              f"histories and final state equal, max abs diff {diff:.3e} "
+              f"(cudnn.deterministic); launches {lg}")
+        if styled:
+            _styled_replays(graphed, train_ds, gpu)
+        more[name] = graphed
+    torch.backends.cudnn.deterministic = True
+    try:
+        _eval_pairs(clear_graphed, more["clear styled on the card"],
+                    more["gvae"], valid_ds)
+        _epochs_per_scan_fit(clear_graphed, train_ds)
+    finally:
+        torch.backends.cudnn.deterministic = det
     per_step = {"clear": {"clear_latent_fwdgrad_kernel": 1,
                           "clear_latent_bwd_kernel": 1}}
     for name in ("clear-tc", "clear-mim (CLUB-S)"):   # K2f and K2b
@@ -1054,6 +1082,150 @@ def phase_graph(gpu, train_ds, valid_ds, here):
         print(f"[graph] {name}: device trace of 20 replays: {seen} (expected "
               f"{want})")
     return total
+
+
+def _epoch_rows(n: int, seed: int, bs: int = 128):
+    perm = np.random.RandomState(seed).permutation(n)
+    nb = n // bs
+    return torch.as_tensor(perm[: nb * bs].reshape(nb, bs), device="cuda")
+
+
+def _styled_replays(trainer, train_ds, gpu, n: int = 20):
+    """The styled graphed step (K3, zigzag and canny inside the graph) of a
+    trainer that has fit: one epoch of its replays under
+    ``set_sync_debug_mode("error")`` (a synchronizing call between the
+    first and the last replay raises), K3's launches by replay (one a
+    step), then K3 by name in the device trace of n replays, and their
+    wall, device time and kernels a step."""
+    from torch.autograd import DeviceType
+
+    from clearvae_torch.bench import profile_window
+    from clearvae_torch.ops.kernels import style as K3
+
+    ep = trainer._graphs[(id(train_ds), 128, True)][1]
+    if ep.graph is None:
+        fail("the styled fit captured no graph")
+    rows = _epoch_rows(len(train_ds), 99)
+    torch.cuda.synchronize()
+    K3.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ep.run(rows)
+    except RuntimeError as exc:
+        fail(f"a synchronizing call inside the styled replay loop: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if K3.LAUNCHES["style"] != len(rows):
+        fail(f"K3 launched {K3.LAUNCHES['style']} times by replay in "
+             f"{len(rows)} styled replays")
+    sub = rows[:n]
+    ep.run(sub)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep.run(sub)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    # one replay more than inspected: the first opens the trace and counts
+    # for neither K1 nor K3. Each replay styles (K3) before its K1 forward
+    # kernel, so each of the n inspected replays holds exactly one K3
+    # between its K1 forward kernel and the one before it
+    with profile_window() as prof:
+        ep.run(rows[:n + 1])
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1_at = sorted(e.time_range.start for e in dev_events
+                   if "clear_latent_fwdgrad_kernel" in e.name)
+    k3_at = [e.time_range.start for e in dev_events if "style_kernel" in e.name]
+    if len(k1_at) != n + 1:
+        fail(f"the device trace of {n + 1} styled replays holds {len(k1_at)} "
+             f"K1 forward kernels")
+    per_replay = np.bincount(np.searchsorted(k1_at, k3_at),
+                             minlength=n + 2)[1:]
+    if list(per_replay) != [1] * n + [0]:
+        fail(f"the device trace of {n} inspected styled replays holds K3 "
+             f"kernels {per_replay[:n].tolist()} a replay and "
+             f"{per_replay[n]} after the last K1")
+    k3 = int(per_replay.sum())
+    with profile_window() as prof:
+        ep.run(sub)
+        torch.cuda.synchronize()
+    by_name, counts = _device_kernels(prof, counts=True)
+    busy = sum(by_name.values()) / 1e3 / n
+    style_ms = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
+    print(f"[graph] styled fit: {len(rows)} replays with no synchronizing call "
+          f"(sync debug mode 'error'); K3 {len(rows)} by replay; device trace "
+          f"of {n} inspected replays: {k3} style_kernel, one in each; styled "
+          f"graphed step (fused, "
+          f"B=128): wall {wall:.3f} ms, device busy {busy:.4f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {sum(counts.values()) / n:.1f} kernels/step, "
+          f"K3 {style_ms:.4f} ms/step; {gpu}")
+
+
+def _eval_pairs(clear, styled, gvae, valid_ds):
+    """``evaluate`` graphed (the default) against eager (``use_scan=False``)
+    from the same eval noise, each with the ragged tail of the held-out
+    split: MIG, MSE and every per-batch mean equal; the fused CLEAR eval's
+    K2f = 2 a batch and the styled eval's K3 = 1 a batch, by replay."""
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+
+    n_batches = -(-len(valid_ds) // 128)
+    if len(valid_ds) % 128 == 0:
+        fail("the held-out split has no ragged tail")
+    for tag, trainer, kw, want in (
+            ("clear", clear, {}, {"snn_fwd": 2 * n_batches, "style": 0}),
+            ("clear styled", styled, {"style_on_device": True},
+             {"snn_fwd": 2 * n_batches, "style": n_batches}),
+            ("gvae with_evidence_acc", gvae, {"with_evidence_acc": True},
+             {"snn_fwd": 0, "style": 0})):
+        res = {}
+        for use_scan in (True, False):
+            trainer.generator.manual_seed(11)
+            FL.reset_launches()
+            K3.reset_launches()
+            t0 = time.perf_counter()
+            out = trainer.evaluate(valid_ds, batch_size=128, use_scan=use_scan,
+                                   **kw)
+            torch.cuda.synchronize()
+            res[use_scan] = (out, dict(trainer.last_eval_totals),
+                             {"snn_fwd": FL.LAUNCHES["snn_fwd"],
+                              "style": K3.LAUNCHES["style"]},
+                             time.perf_counter() - t0)
+        if res[True][:2] != res[False][:2]:
+            fail(f"evaluate {tag}: graphed {res[True][:2]} vs eager "
+                 f"{res[False][:2]}")
+        if res[True][2] != want or res[False][2] != want:
+            fail(f"evaluate {tag}: launches graphed {res[True][2]}, eager "
+                 f"{res[False][2]}; expected {want}")
+        if not all(math.isfinite(v) for v in (*res[True][0], *res[True][1].values())):
+            fail(f"evaluate {tag}: non-finite {res[True][:2]}")
+        print(f"[graph] evaluate {tag} ({len(valid_ds)} images, ragged tail "
+              f"{len(valid_ds) % 128}): graphed == eager, MIG "
+              f"{res[True][0][0]:.4f}, MSE {res[True][0][1]:.4f}, "
+              f"{sorted(res[True][1])} equal; launches {res[True][2]}; "
+              f"{res[True][3]:.3f} s graphed, {res[False][3]:.3f} s eager")
+
+
+def _epochs_per_scan_fit(ref, train_ds):
+    """The fused CLEAR trainer fit 2 epochs graphed with epochs_per_scan=2
+    from the same seed as ``ref`` (the one-step graph's fit): the history
+    is one block of the last batch of each epoch, equal to ref's, and the
+    final state equal."""
+    from clearvae_torch.train.factories import get_clearvae_trainer
+
+    kw = {**ADV_COMMON, "ps": True}
+    t, _ = _graph_fit(get_clearvae_trainer, kw, train_ds, 2, epochs_per_scan=2)
+    last = {k: np.asarray([h[k][-1] for h in ref.history]) for k in ref.history[0]}
+    if len(t.history) != 1 or any(
+            not np.array_equal(t.history[0][k], v) for k, v in last.items()):
+        fail(f"fit epochs_per_scan=2: history {t.history} vs the last batches "
+             f"{last}")
+    diff = _same_training("fit epochs_per_scan=2 vs 1", ref, t,
+                          histories=False)
+    print(f"[graph] fit epochs_per_scan=2: one block, the last batch of each "
+          f"epoch equal to the one-step graph's, final state equal "
+          f"(max abs diff {diff:.1e})")
 
 
 class _Recorder:
@@ -1384,11 +1556,13 @@ def _device_kernels(prof, counts: bool = False):
 
 
 def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
-    """Where a styled train step's time goes: wall ms of styling + step,
-    styling alone and the step alone over n batches, then the device time of
-    each under the profiler, K3's and styling's share of the styled step's
-    device time, and styling's kernels and host syncs a batch."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a styled train step's time goes: wall ms of styling + step
+    (eager, and graphed: one replay of the captured styled step a batch),
+    styling alone and the step alone over n batches, then the device time
+    of each under the profiler, K3's and styling's share of the styled
+    step's device time, and styling's kernels and host syncs a batch."""
+    from clearvae_torch.bench import profile_window
+    from clearvae_torch.train import steps as S
 
     dev = trainer.device
     raw, sidx, draws = ds.device_arrays(dev)
@@ -1409,17 +1583,24 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
         for i, x in zip(idx, pre):
             trainer.train_step(x, labels[i], trainer._train_noise(bs))
 
+    graph = S.make_graphed_epoch_fn(trainer.train_step, None, labels, bs,
+                                    trainer._train_noise, styler=ds.style,
+                                    style_arrays=(raw, sidx, draws))
+    rows = torch.stack(idx)
+
+    def graphed():
+        graph.run(rows)
+
     walls, busy, kernels, k3 = {}, {}, {}, 0.0
-    for name, fn in (("styled step", styled), ("styling", style_only),
-                     ("step", step_only)):
+    for name, fn in (("styled step", styled), ("graphed styled step", graphed),
+                     ("styling", style_only), ("step", step_only)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile_window() as prof:
             fn()
             torch.cuda.synchronize()
         by_name, n_kernels = _device_kernels(prof)
@@ -1430,9 +1611,12 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
         if name == "styled step":
             k3 = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[profile] styled train step (B={bs}): wall {walls['styled step']:.3f}"
-          f" ms, device busy {busy['styled step']:.4f} ms, idle share "
-          f"{1 - busy['styled step'] / walls['styled step']:.3f}")
+    for name in ("styled step", "graphed styled step"):
+        print(f"[profile] {name.replace('styled step', 'styled train step')} "
+              f"(B={bs}): wall {walls[name]:.3f} ms, device busy "
+              f"{busy[name]:.4f} ms, idle share "
+              f"{1 - busy[name] / walls[name]:.3f}, {kernels[name]:.1f} "
+              f"kernels/step")
     # host syncs of one styling call, as torch's sync debug mode reports them
     import warnings
 
@@ -1472,6 +1656,7 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     try:
         import clearvae_torch
@@ -1515,6 +1700,8 @@ def main():
                         launches=by_path["style_batch"]["downstream"],
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path=by_path["style_batch"]))
+    print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
+          f"(phases 1-7, the build included)")
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048)] for n in REPLACES},

@@ -25,6 +25,7 @@ Needs a CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -129,6 +130,28 @@ def device_kernels(prof) -> tuple[dict, dict, float]:
 
 
 TURNS = ("eager", "graphed", "graphed", "eager")
+SETTLE_S = 0.02
+
+
+@contextlib.contextmanager
+def profile_window():
+    """``torch.profiler.profile`` of CPU and CUDA activity around a block
+    that starts and ends ``SETTLE_S`` inside the window, the device idle
+    at both edges. Kernels run right after the profiler started were
+    missing from its traces on the card (one K3 of 20 graph replays, one
+    of ten K2b calls); the trace drops device events it places outside its
+    window, and the card's clock is matched to the host's only so far, so
+    the block keeps away from the edges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
 
 
 def time_steps(trainer, ds, n: int = 20,
@@ -153,7 +176,6 @@ def time_steps(trainer, ds, n: int = 20,
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from clearvae_torch.train import steps as S
 
@@ -178,10 +200,8 @@ def time_steps(trainer, ds, n: int = 20,
     out = {}
     for mode, fn in fns.items():
         for _ in range(3):     # a profile with no kernel is the profiler's loss
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile_window() as prof:
                 fn()
-                torch.cuda.synchronize()
             counts, _, busy_us = device_kernels(prof)
             if counts:
                 break

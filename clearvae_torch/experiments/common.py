@@ -22,13 +22,16 @@ SWEEP_COLUMNS = ("model", "beta", "mig", "elbo")
 def experiment_helper(train_ds, valid_ds, test_ds, vae_trainer, epochs: int,
                       batch_size: int = 128, n_class: int = 10,
                       probe_lr: float = 3e-4, probe_epochs: int | None = None,
-                      style_on_device: bool = False):
+                      epochs_per_scan: int = 1, style_on_device: bool = False):
     """Train VAE → freeze → train MLP probe on mu_c → test metrics
     (reference experiment_helper, run_styledmnist_downstream_expr.py:92-127).
     The probe trains for the VAE's number of epochs unless ``probe_epochs``
-    says otherwise; ``style_on_device`` carries through the VAE's fit, the
-    probe and the test evaluation."""
+    says otherwise; ``epochs_per_scan`` goes to the VAE's ``fit`` (blocks
+    of that many epochs, validation at block boundaries; ignored when
+    styling on the device); ``style_on_device`` carries through the VAE's
+    fit, the probe and the test evaluation."""
     vae_trainer.fit(epochs, train_ds, valid_ds, batch_size=batch_size,
+                    epochs_per_scan=epochs_per_scan,
                     style_on_device=style_on_device)
     probe = DownstreamMLPTrainer(vae_trainer, n_class=n_class, lr=probe_lr)
     probe.fit(probe_epochs or epochs, train_ds, valid_ds,
@@ -42,6 +45,7 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
                   batch_size: int = 128, n_class: int = 10,
                   probe_epochs: int | None = None,
                   resume_path: str | None = None,
+                  epochs_per_scan: int = 1,
                   style_on_device: bool = False) -> dict:
     """Train every (factory, params) entry and collect the reference's result
     schema: {model: {acc, pr: {overall, stratified}, roc: {...}}}
@@ -50,7 +54,8 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
     With ``resume_path`` the results JSON is also a manifest: models already
     in it are skipped, and each finished model is written at once. A
     ``SimpleCNNTrainer`` entry is trained and tested as a classifier; every
-    other entry is a VAE judged by the probe."""
+    other entry is a VAE judged by the probe. ``epochs_per_scan`` goes to
+    every entry's ``fit``, as in ``experiment_helper``."""
     results = {}
     if resume_path and os.path.exists(resume_path):
         with open(resume_path) as f:
@@ -64,6 +69,7 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
         trainer = trainer_func(**params)
         if isinstance(trainer, SimpleCNNTrainer):
             trainer.fit(epochs, train_ds, valid_ds, batch_size=batch_size,
+                        epochs_per_scan=epochs_per_scan,
                         style_on_device=style_on_device)
             (aupr, auroc), acc = trainer.evaluate(
                 test_ds, batch_size=batch_size, style_on_device=style_on_device)
@@ -71,7 +77,8 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
             aupr, auroc, acc = experiment_helper(
                 train_ds, valid_ds, test_ds, trainer, epochs,
                 batch_size=batch_size, n_class=n_class,
-                probe_epochs=probe_epochs, style_on_device=style_on_device)
+                probe_epochs=probe_epochs, epochs_per_scan=epochs_per_scan,
+                style_on_device=style_on_device)
         results[model_name] = {
             "acc": round(float(acc), 3),
             "pr": {"overall": round(float(np.mean(list(aupr.values()))), 3),

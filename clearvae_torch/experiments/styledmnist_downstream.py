@@ -57,6 +57,10 @@ def get_args(argv=None):
     p.add_argument("--n_train", type=int, default=50000)
     p.add_argument("--n_test", type=int, default=10000)
     p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--epochs_per_scan", type=int, default=1,
+                   help="run this many epochs per block of graph replays "
+                        "(validation prints at block boundaries; ignored "
+                        "with --style_on_device)")
     p.add_argument("--k_max", type=int, default=N_STYLES - 1)
     p.add_argument("--k_min", type=int, default=1,
                    help="start the k sweep here (e.g. --k_min 5 --k_max 5 "
@@ -134,6 +138,7 @@ def experiment(args, k: int, seed: int, trainer_kwargs: dict) -> dict:
     results = run_model_zoo(models, train, valid, test, args.epochs,
                             batch_size=args.batch_size, n_class=10,
                             resume_path=fpath,
+                            epochs_per_scan=args.epochs_per_scan,
                             style_on_device=args.style_on_device)
     save_results(results, fpath)
     return results

@@ -3,10 +3,14 @@
 code/corruption_utils/corruptions.py).
 
 Every style maps a [B, 28, 28] float32 batch in 0..255 to the same shape
-and range. ``style_batch`` dispatches per sample by style index, in place of
-the JAX package's ``make_style_fn`` + ``vmap``: the styles that K3 (the fused
-deterministic styler, ``ops/kernels/style.py``) expresses go through it, one
-call per severity; zigzag and canny are torch ops.
+and range. ``style_batch`` dispatches per sample by style index, as the JAX
+package's ``make_style_fn`` + ``vmap(lax.switch)`` does: the styles that K3
+(the fused deterministic styler, ``ops/kernels/style.py``) expresses go
+through it, one call per severity; zigzag and canny are torch ops computed
+for the whole batch, their rows selected by ``torch.where``. Nothing in it
+depends on the data on the host (no ``nonzero``, no count of rows), and its
+constants are made once per device, so a styled step can be captured in a
+CUDA graph.
 
 Randomness: only zigzag draws (r0 in [0, 27), dr in [-5, 5)), from the
 threefry2x32 key fold_in(key(dataset seed), sample id) exactly as the JAX
@@ -16,12 +20,13 @@ The other five styles are deterministic.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
 from clearvae_torch.ops import prng as P
-from clearvae_torch.ops.image import (conv2d_same, gaussian_filter,
-                                      line_from_points)
+from clearvae_torch.ops.image import (conv2d_same, constant,
+                                      gaussian_filter, line_from_points)
 from clearvae_torch.ops.kernels.style import (DEFAULT_SEVERITY, STYLE_CODES,
                                               style_batch_kernel)
 
@@ -96,6 +101,17 @@ def zigzag(x, r0: torch.Tensor, dr: torch.Tensor, severity=None):
 # ---------------------------------------------------------------------------
 
 
+_SOBEL = np.array([[1.0, 0.0, -1.0], [2.0, 0.0, -2.0], [1.0, 0.0, -1.0]],
+                  np.float32)
+
+
+def _eroded(h: int, w: int) -> np.ndarray:
+    """The boundary mask of canny: every pixel but the outer ring."""
+    m = np.zeros((h, w), bool)
+    m[1:-1, 1:-1] = True
+    return m
+
+
 def canny_edges(x, severity=None, sigma: float = 1.0, low_threshold: float = 0.1,
                 high_threshold: float = 0.2):
     """Canny edges: Gaussian smooth, Sobel, interpolated non-maximum
@@ -107,11 +123,10 @@ def canny_edges(x, severity=None, sigma: float = 1.0, low_threshold: float = 0.1
     smoothed = gaussian_filter(img, sigma, mode="constant")
     msum = gaussian_filter(torch.ones_like(img[:1]), sigma, mode="constant")
     smoothed = smoothed / torch.clamp_min(msum, 1e-12)
-    eroded = torch.zeros((h, w), dtype=torch.bool, device=img.device)
-    eroded[1:-1, 1:-1] = True
-
-    sob = torch.tensor([[1.0, 0.0, -1.0], [2.0, 0.0, -2.0], [1.0, 0.0, -1.0]])
-    gx = conv2d_same(smoothed, sob.T, mode="constant") / 4.0
+    eroded = constant(("eroded", h, w), img.device, lambda: _eroded(h, w))
+    sob = constant("sobel", img.device, lambda: _SOBEL)
+    sob_t = constant("sobel_t", img.device, lambda: _SOBEL.T.copy())
+    gx = conv2d_same(smoothed, sob_t, mode="constant") / 4.0
     gy = conv2d_same(smoothed, sob, mode="constant") / 4.0
     mag = torch.hypot(gx, gy)
 
@@ -201,9 +216,12 @@ def style_batch(x: torch.Tensor, style_idx: torch.Tensor, draws: torch.Tensor,
     The samples whose style K3 expresses go through ``style_batch_kernel``,
     one call per severity group over the whole batch, writing their rows of
     the output in place (code -1 marks the other rows, which K3 leaves); a
-    CUDA batch launches the kernel or raises. Zigzag and canny are torch
-    ops. ``draws`` [B, 2] holds each sample's zigzag draws (r0, dr), from
-    ``zigzag_draws``."""
+    CUDA batch launches the kernel or raises. Zigzag and canny are torch ops
+    over the whole batch, each style's rows taken by ``torch.where``, as the
+    JAX package's ``vmap(lax.switch)`` computes every branch and selects:
+    each style acts on each image on its own, so a row's pixels do not
+    depend on the rest of the batch. ``draws`` [B, 2] holds each sample's
+    zigzag draws (r0, dr), from ``zigzag_draws``."""
     x = x.to(torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     routed, luts = _k3_plan(styles, x.device)
@@ -212,12 +230,9 @@ def style_batch(x: torch.Tensor, style_idx: torch.Tensor, draws: torch.Tensor,
     for code, (name, severity) in enumerate(styles):
         if code in routed:
             continue
-        sel = torch.nonzero(style_idx == code).flatten()
-        if sel.numel() == 0:
-            continue
-        xs = x[sel]
         if name == "zigzag":
-            out[sel] = zigzag(xs, *draws[sel].unbind(1))
+            styled = zigzag(x, *draws.unbind(1))
         else:
-            out[sel] = STYLE_FNS[name](xs, severity)
+            styled = STYLE_FNS[name](x, severity)
+        out = torch.where((style_idx == code)[:, None, None], styled, out)
     return out / 255.0

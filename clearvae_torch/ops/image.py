@@ -5,6 +5,11 @@ Batched: images are [B, H, W] tensors and per-sample scalars are [B]
 tensors, so one call styles a whole batch on the device. Gaussian filtering
 and 'same' convolutions follow scipy/skimage border modes. (Scale's zoom is
 K3's interpolation matrix, ``ops/kernels/style.py``.)
+
+Every constant tensor (border indices, filter taps) is made once per
+(shape, device) by ``constant`` and kept, so that a styling call copies
+nothing from the host once its constants exist: it can run inside a
+captured CUDA graph, whose warm-up call makes them.
 """
 
 from __future__ import annotations
@@ -12,6 +17,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.nn import functional as F
+
+_CONSTANTS: dict = {}
+
+
+def constant(key, device, make) -> torch.Tensor:
+    """The tensor ``make()`` returns (a numpy array or a CPU tensor), on
+    ``device``, made at the first call for (``key``, device) and kept."""
+    k = (key, str(torch.device(device)))
+    if k not in _CONSTANTS:
+        _CONSTANTS[k] = torch.as_tensor(make(), device=device)
+    return _CONSTANTS[k]
+
 
 # scipy/skimage border-mode names mapped to index rules:
 #   'nearest'     -> edge replicate            (skimage gaussian default)
@@ -41,8 +58,10 @@ def _pad2d(x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
     if mode == "constant":
         return F.pad(x, (pw, pw, ph, ph))
     h, w = x.shape[-2:]
-    ri = torch.as_tensor(_border_idx(h, ph, mode), device=x.device)
-    ci = torch.as_tensor(_border_idx(w, pw, mode), device=x.device)
+    ri = constant(("border", h, ph, mode), x.device,
+                  lambda: _border_idx(h, ph, mode))
+    ci = constant(("border", w, pw, mode), x.device,
+                  lambda: _border_idx(w, pw, mode))
     return x[..., ri, :][..., ci]
 
 
@@ -52,7 +71,8 @@ def _correlate(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_same(x: torch.Tensor, kernel, mode: str = "reflect_101") -> torch.Tensor:
-    """2-D correlation with 'same' output of a [B, H, W] batch."""
+    """2-D correlation with 'same' output of a [B, H, W] batch. A kernel
+    tensor of x's dtype on x's device is used as it is (no copy)."""
     kernel = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
     kh, kw = kernel.shape
     return _correlate(_pad2d(x, kh // 2, kw // 2, mode), kernel)
@@ -72,7 +92,8 @@ def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "nearest",
     (skimage.filters.gaussian defaults: mode='nearest', truncate=4)."""
     if sigma <= 0:
         return x
-    k = torch.as_tensor(gaussian_kernel_1d(sigma, truncate), device=x.device)
+    k = constant(("gaussian", sigma, truncate), x.device,
+                 lambda: gaussian_kernel_1d(sigma, truncate))
     r = k.shape[0] // 2
     xp = _pad2d(x, r, r, mode)
     return _correlate(_correlate(xp, k[:, None]), k[None, :])

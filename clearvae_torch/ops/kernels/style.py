@@ -119,6 +119,20 @@ def _constants(severity: int):
     return _BRIGHT[s], levels / 255.0, 255.0 / levels, _CONTR[s]
 
 
+_SCALAR_CACHE: dict = {}
+
+
+def _scalars(severity: int, device) -> tuple:
+    """``_constants(severity)`` as float32 0-d tensors on ``device``, made
+    once (the plain twin's; a call then copies nothing from the host)."""
+    k = (severity, str(device))
+    if k not in _SCALAR_CACHE:
+        _SCALAR_CACHE[k] = tuple(
+            torch.tensor(v, dtype=torch.float32, device=device)
+            for v in _constants(severity))
+    return _SCALAR_CACHE[k]
+
+
 def _check(x: Tensor, code: Tensor, severity: int, out=None) -> None:
     if x.dim() != 3 or x.shape[1] != x.shape[2] or x.shape[1] > H_MAX:
         raise ValueError(f"x must be [B, H, H] with H <= {H_MAX}; got "
@@ -149,8 +163,7 @@ def style_plain(x: Tensor, code: Tensor, severity: int,
     non-negative code are written there and the others left as they are."""
     _check(x, code, severity, out)
     b, h, w = x.shape
-    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=x.device)
-    bright, q_mul, q_div, contr = (f32(v) for v in _constants(severity))
+    bright, q_mul, q_div, contr = _scalars(severity, x.device)
     a = _zoom(h, severity, x.device)
     x01 = x / 255.0
     cols = torch.arange(w, device=x.device)

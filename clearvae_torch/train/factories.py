@@ -9,17 +9,13 @@ losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
 of c_loss for CLEAR-TC and CLEAR-MIM). ``trainer_from_config`` builds one
 of them from a typed ``config.ClearVAEConfig``.
 
-On a CUDA device Adam is built ``fused`` and ``capturable``: one update
-kernel for all of a module's parameters, its count on the device, so that
-one optimizer serves the eager step and the captured one
-(``fit(use_scan=True)``) with the same kernels. On the CPU (tests) it is
-torch's default Adam, which the JAX package's optax.adam is checked
-against.
+Adam is ``trainers.adam``: ``fused`` and ``capturable`` on a CUDA device,
+so that one optimizer serves the eager step and the captured one (``fit``'s
+default) with the same kernels; torch's default Adam on the CPU.
 """
 
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -30,7 +26,7 @@ from clearvae_torch.registry import MODELS
 from clearvae_torch.train.trainers import (CLEARVAETrainer, ClearMIMVAETrainer,
                                            ClearTCVAETrainer,
                                            HierarchicalVAETrainer,
-                                           SimpleCNNTrainer)
+                                           SimpleCNNTrainer, adam)
 
 def _seeded(seed: int, build):
     with torch.random.fork_rng(devices=[]):
@@ -39,9 +35,7 @@ def _seeded(seed: int, build):
 
 
 def _adam(lr: float, device):
-    cuda = resolve_device(device).type == "cuda"
-    return functools.partial(torch.optim.Adam, lr=lr, fused=cuda or None,
-                             capturable=cuda)
+    return adam(lr, resolve_device(device))
 
 
 def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",

@@ -10,9 +10,12 @@ come back as 0-d tensors on the device, so a step forces no host
 synchronisation either.
 
 Epoch runners loop over the batches of an epoch, which stay on the device:
-``make_epoch_fn`` eagerly, ``make_graphed_epoch_fn`` through one captured
-CUDA graph of the whole step (the counterpart of the JAX package's scanned
-epoch program, one dispatch a step instead of one a kernel).
+``make_epoch_fn`` eagerly, ``make_graphed_epoch_fn`` through a captured
+CUDA graph of the whole step, styling included (the counterpart of the JAX
+package's scanned epoch program, one dispatch a step, or a block of
+steps, instead of one a kernel); ``GraphedEval`` and
+``make_graphed_probe_epochs_fn`` do the same for the eval step and the
+probe.
 
 ``noise`` holds every random draw of the step, made by the trainer (or
 injected by a test): the reparameterization's (eps_c, eps_s) for the CLEAR,
@@ -451,83 +454,106 @@ def make_styled_epoch_fn(step, styler):
     return epoch_fn
 
 
-class GraphedEpoch:
-    """The train step of ``make_graphed_epoch_fn`` over static buffers.
+def _into(static, fresh):
+    """The static noise of a graphed step after a draw: ``fresh`` (a tensor,
+    or a tuple, list or dict of tensors and None) copied into ``static``
+    where it holds other tensors, so that a captured graph reads it; at the
+    first draw (``static`` None) a copy of ``fresh`` that the graph owns."""
+    if static is None:
+        return None if fresh is None else _clone(fresh)
+    if isinstance(static, torch.Tensor):
+        if fresh is not static:
+            static.copy_(fresh)
+    elif isinstance(static, dict):
+        for k, v in static.items():
+            _into(v, fresh[k])
+    else:
+        for v, f in zip(static, fresh):
+            _into(v, f)
+    return static
 
-    ``run(batch_idx)`` takes one step per row of ``batch_idx`` [n, B] on
-    the device and returns the metrics as a [n, k] tensor there, columns in
-    the order of ``keys``. Per row, outside the graph: the index row is
-    copied into the static index buffer, the batch is styled into the
-    static image buffer when there is a ``styler``, the noise is drawn into
-    the static noise tensors with ``draw_noise(B, out)`` (the draws of the
-    eager step, so both consume one random stream alike), and after the
-    step the metrics vector is copied into the row's history.
 
-    Inside the graph: the gather of the batch from the resident data, then
-    the whole step (forward, the fused-loss kernels, backward and every
-    optimizer update). The graph holds pointers to the parameters, the
-    BatchNorm buffers and the optimizer's state, so whoever replaces one of
-    them (``optimizer.load_state_dict``) drops this object.
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
 
-    On a CUDA device the first ``WARMUP`` rows run as real steps on a side
-    stream (lazy state such as Adam's moments is made there), the next row
-    is captured and then replayed, like every later one: as many updates as
-    the eager loop makes. A capture failure raises; there is no eager
-    fallback. ``ops.kernels.counts.GraphLaunches`` moves the launches that
-    the kernels' wrappers count during the capture to the replays. On the
-    CPU (tests) the same body runs uncaptured on every row.
-    """
+
+class _GraphedStep:
+    """A step over static buffers, captured in a CUDA graph and replayed.
+
+    ``idx`` [B] holds the sample indices of the batch and ``noise`` its
+    draws; ``_stage`` copies an index row and draws the noise into them,
+    outside the graph. Inside it, the batch is gathered from the resident
+    ``data`` and ``labels`` by ``idx``; with a ``styler`` (the dataset's
+    ``style``) ``data`` is None and ``style_arrays`` = (raw [N, H, W],
+    style_idx, draws): the batch's raw rows, style indices and zigzag draws
+    are gathered and styled there (K3, zigzag and canny), then given their
+    channel dimension. ``_body()`` is what a subclass captures: the step on
+    the staged batch.
+
+    On a CUDA device the first ``WARMUP`` calls run as real calls on a side
+    stream (lazy state such as Adam's moments, cuDNN's plans and the
+    styles' constant tensors is made there, never in a capture); the next
+    call captures the body in a graph and replays it, like every later
+    call. A capture failure raises; there is no eager fallback.
+    ``GraphLaunches`` moves the launches that the kernels' wrappers count
+    during the capture to the replays. On the CPU (tests) the same body
+    runs uncaptured on every call. The graph holds pointers to the
+    parameters, the BatchNorm buffers and the optimizer's state, so whoever
+    replaces one of them (``optimizer.load_state_dict``) drops this
+    object."""
 
     WARMUP = 3
 
     def __init__(self, step, data, labels, batch_size: int, draw_noise,
                  styler=None, style_arrays=None):
         self.step, self.data, self.labels = step, data, labels
-        self.draw_noise = draw_noise
+        self.draw_noise, self.batch_size = draw_noise, batch_size
         self.styler, self.style_arrays = styler, style_arrays
         dev = labels.device
         self.cuda = dev.type == "cuda"
         self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
-        self.x = None
-        if styler is not None:   # raw [N, H, W]: styled batches [B, H, W, 1]
-            self.x = torch.zeros((batch_size, *style_arrays[0].shape[1:], 1),
-                                 dtype=torch.float32, device=dev)
         self.noise = None
-        self.keys = None
-        self.graph = None
-        self.out = None
-        self.launches = GraphLaunches()
+        self.graph = None     # (CUDAGraph, its output, GraphLaunches)
         self.warm = 0
 
-    def _body(self):
-        x = self.data[self.idx] if self.styler is None else self.x
-        m = self.step(x, self.labels[self.idx], self.noise)
-        if self.keys is None:
-            self.keys = tuple(m)
-        return torch.stack([m[k] for k in self.keys])
+    def _batch(self):
+        """The staged batch, (x [B, H, W, C], labels [B])."""
+        idx = self.idx
+        if self.styler is None:
+            return self.data[idx], self.labels[idx]
+        raw, sidx, draws = self.style_arrays
+        return (self.styler(raw[idx], sidx[idx], draws[idx])[..., None],
+                self.labels[idx])
 
     def _stage(self, row):
+        """Copy the index row [B] into ``idx`` and draw the batch's noise
+        into its static tensors: the draws of the eager loop, from the same
+        generator."""
         self.idx.copy_(row)
-        if self.styler is not None:
-            raw, sidx, draws = self.style_arrays
-            self.x[..., 0].copy_(self.styler(raw[row], sidx[row], draws[row]))
-        self.noise = self.draw_noise(len(row), self.noise)
+        self.noise = _into(self.noise,
+                           self.draw_noise(self.batch_size, self.noise))
 
-    def _capture(self):
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with self.launches.capture(), torch.cuda.graph(graph):
-                out = self._body()
-        except Exception as exc:
-            raise RuntimeError(
-                f"capturing the train step {type(self.step).__name__} in a "
-                f"CUDA graph failed: {exc}") from exc
-        self.graph, self.out = graph, out
+    def _body(self):
+        raise NotImplementedError
 
-    def _replay(self):
-        self.graph.replay()
-        self.launches.replay()
-        return self.out
+    def _call(self):
+        """The body on the staged batch: run, warm-up, or replay."""
+        if not self.cuda:
+            return self._body()
+        if self.warm < self.WARMUP:
+            return self._warm_up()
+        if self.graph is None:
+            self._capture()
+        graph, out, launches = self.graph
+        graph.replay()
+        launches.replay()
+        return out
 
     def _warm_up(self):
         side, main = torch.cuda.Stream(), torch.cuda.current_stream()
@@ -535,44 +561,109 @@ class GraphedEpoch:
         with torch.cuda.stream(side):
             out = self._body()
         main.wait_stream(side)
-        out.record_stream(main)
+        for t in (out.values() if isinstance(out, dict) else (out,)):
+            t.record_stream(main)
         self.warm += 1
         return out
 
-    def _one(self):
-        if not self.cuda:
-            return self._body()
-        if self.graph is None and self.warm < self.WARMUP:
-            return self._warm_up()
-        if self.graph is None:
-            self._capture()
-        return self._replay()
+    def _capture(self):
+        graph, launches = torch.cuda.CUDAGraph(), GraphLaunches()
+        name = type(self.step).__name__
+        try:
+            with launches.capture(), torch.cuda.graph(graph):
+                out = self._body()
+        except Exception as exc:
+            raise RuntimeError(f"capturing the step {name} in a CUDA graph "
+                               f"failed: {exc}") from exc
+        self.graph = (graph, out, launches)
+
+
+class GraphedEpoch(_GraphedStep):
+    """The train step of ``make_graphed_epoch_fn`` over static buffers.
+
+    ``run(batch_idx)`` takes one step per row of ``batch_idx`` [n, B] on
+    the device and returns the metrics as a [n, k] tensor there, columns in
+    the order of ``keys``; nothing in it waits for the device. Per row,
+    outside the graph: the row is copied into the static index buffer and
+    the step's noise is drawn into its static tensors with
+    ``draw_noise(B, out)`` (the draws of the eager step, in its order, so
+    both consume one random stream alike); after the replay the metrics are
+    copied into the history. Inside the graph: the gather (and styling) of
+    the batch, then the whole step (forward, the fused-loss kernels,
+    backward and every optimizer update)."""
+
+    def __init__(self, step, data, labels, batch_size: int, draw_noise,
+                 styler=None, style_arrays=None):
+        super().__init__(step, data, labels, batch_size, draw_noise, styler,
+                         style_arrays)
+        self.keys = None
+
+    def _body(self):
+        x, label = self._batch()
+        m = self.step(x, label, self.noise)
+        if self.keys is None:
+            self.keys = tuple(m)
+        return torch.stack([m[k] for k in self.keys])
 
     def run(self, batch_idx) -> torch.Tensor:
         hist = None
         for i, row in enumerate(batch_idx):
             self._stage(row)
-            vec = self._one()
+            out = self._call()
             if hist is None:
-                hist = torch.empty((len(batch_idx), len(vec)),
-                                   dtype=vec.dtype, device=vec.device)
-            hist[i].copy_(vec)
+                hist = torch.empty((len(batch_idx), len(out)),
+                                   dtype=out.dtype, device=out.device)
+            hist[i].copy_(out)
         return hist
 
 
 def make_graphed_epoch_fn(step, data, labels, batch_size: int, draw_noise,
                           styler=None, style_arrays=None) -> GraphedEpoch:
     """The counterpart of the JAX package's scanned ``make_epoch_fn``
-    (steps.py:630): the train ``step`` captured once in a CUDA graph over
-    static buffers and replayed per batch, one dispatch a step. ``data``
-    [N, H, W, C] and ``labels`` [N] stay resident; with ``styler`` (the
-    dataset's ``style``) ``data`` is None and ``style_arrays`` = (raw
-    [N, H, W], style_idx, draws): each batch is styled eagerly outside the
-    graph (zigzag and canny sync the host) and copied into the static image
-    buffer. ``draw_noise(B, out)`` draws a step's noise, into ``out`` when
-    given. See ``GraphedEpoch``."""
+    (steps.py:630) and, with ``styler``, ``make_styled_epoch_fn``
+    (steps.py:823): the train ``step`` captured in a CUDA graph over static
+    buffers and replayed, one dispatch a step. ``data`` [N, H, W, C] and
+    ``labels`` [N] stay resident; with ``styler`` (the dataset's ``style``)
+    ``data`` is None and ``style_arrays`` = (raw [N, H, W], style_idx,
+    draws): each batch is styled inside the graph. ``draw_noise(B, out)``
+    draws a step's noise, into ``out`` when given. See ``GraphedEpoch``."""
     return GraphedEpoch(step, data, labels, batch_size, draw_noise, styler,
                         style_arrays)
+
+
+class GraphedEval(_GraphedStep):
+    """The counterpart of the JAX package's ``make_eval_epoch_fn`` and, with
+    a ``styler``, ``make_styled_eval_epoch_fn`` (steps.py:863-918): the
+    eval step captured in a CUDA graph over static index and noise buffers
+    and replayed per full batch; arguments as ``make_graphed_epoch_fn``'s.
+
+    ``run(batch_idx)`` evaluates one batch per row of ``batch_idx`` [n, B]
+    and returns {metric: [n]} for the step's scalars and {"z_c", "z_s":
+    [n·B, z]}, preallocated on the device, which each replay's outputs are
+    copied into. It holds no optimizer state, so it captures after one
+    warm-up call."""
+
+    WARMUP = 1
+    LATENTS = ("z_c", "z_s")
+
+    def _body(self):
+        x, label = self._batch()
+        out = self.step(x, label, self.noise)
+        return {k: v for k, v in out.items()
+                if v.ndim == 0 or k in self.LATENTS}
+
+    def run(self, batch_idx) -> dict:
+        n, b = batch_idx.shape
+        res = None
+        for i in range(n):
+            self._stage(batch_idx[i])
+            out = self._call()
+            if res is None:
+                res = {k: v.new_empty((n * b, *v.shape[1:]) if v.ndim
+                                      else (n,)) for k, v in out.items()}
+            for k, v in out.items():
+                (res[k][i * b:(i + 1) * b] if v.ndim else res[k][i]).copy_(v)
+        return res
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +727,31 @@ def make_probe_feature_logits_fn(mlp):
         return mlp(feats, train=False)
 
     return logits_fn
+
+
+def _no_noise(n, out=None):
+    return None
+
+
+def make_graphed_probe_epochs_fn(mlp, optimizer, feats, labels,
+                                 batch_size: int):
+    """The counterpart of the JAX package's ``make_probe_feature_epochs_fn``
+    (steps.py:768-793), the whole probe training as replays: one probe step
+    on cached features (``feats`` [N, z], ``labels`` [N], resident)
+    captured in a CUDA graph (``GraphedEpoch``) and replayed a batch.
+    ``epochs_fn(batch_idx)`` with ``batch_idx`` [n_epochs, n_batches, B]
+    returns ``{"loss": [n_epochs]}``, each epoch's last loss, on the
+    device."""
+
+    def step(x, label, noise):
+        return _probe_feature_core(mlp, optimizer, x, label)
+
+    ep = GraphedEpoch(step, feats, labels, batch_size, _no_noise)
+
+    def epochs_fn(batch_idx):
+        return {"loss": torch.stack([ep.run(bi)[-1, 0] for bi in batch_idx])}
+
+    return epochs_fn
 
 
 def make_probe_feature_epochs_fn(mlp, optimizer):

@@ -10,15 +10,19 @@ deterministic styles). Every random draw of a step (reparameterization
 noise, CLUBSample's permutation, the MIM estimator's inner noise) comes from
 one ``torch.Generator`` seeded from ``seed``. ``fit`` returns the loss
 histories where the JAX package's does (CLEAR-TC: ``factor_d_losses``;
-CLEAR-MIM: ``(mi_losses, mi_learning_losses)``). ``fit(use_scan=True)``
-replays the train step as one captured CUDA graph a batch; checkpoints hold
-the whole trainer state, the noise generator's included, so that a resumed
-``fit(start_epoch=k)`` reproduces the uninterrupted run. Meshes are not
-ported.
+CLEAR-MIM: ``(mi_losses, mi_learning_losses)``). As in the JAX package,
+``fit`` and ``evaluate`` default to their scanned program
+(``use_scan=True``): on a card each batch is one replay of the step
+captured in a CUDA graph, styling included; on the CPU the same body runs
+uncaptured. ``use_scan=False`` is the eager loop, the reference that the
+graph is held to. Checkpoints hold the whole trainer state, the noise
+generator's included, so that a resumed ``fit(start_epoch=k)`` reproduces
+the uninterrupted run. Meshes are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -31,6 +35,18 @@ from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
 from clearvae_torch.train import steps as S
+
+
+def adam(lr: float, device):
+    """Adam at ``lr`` for modules on ``device``: on a CUDA device ``fused``
+    and ``capturable`` (one update kernel for all of a module's
+    parameters, its count on the device), so that one optimizer serves the
+    eager step and the captured one with the same kernels; on the CPU
+    torch's default Adam, which the JAX package's optax.adam is checked
+    against."""
+    cuda = torch.device(device).type == "cuda"
+    return functools.partial(torch.optim.Adam, lr=lr, fused=cuda or None,
+                             capturable=cuda)
 
 
 class TrainerCore:
@@ -52,7 +68,9 @@ class TrainerCore:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # one entry per epoch: {metric: np.ndarray [n_batches]}
         self.history: list[dict] = []
-        # captured train steps, keyed by (dataset, batch size, styled)
+        # captured steps: the train step's keyed by (dataset, batch size,
+        # styled), the eval steps' by ("eval", eval step, batch size,
+        # styled), which holds the last dataset evaluated
         self._graphs: dict = {}
 
     def _randn(self, shape, out=None):
@@ -73,9 +91,10 @@ class TrainerCore:
         given."""
         return self._draw_eps(n) if out is None else self._draw_eps(n, out)
 
-    def _eval_noise(self, n: int):
-        """The draws one eval step of a batch of n takes."""
-        return self._draw_eps(n)
+    def _eval_noise(self, n: int, out=None):
+        """The draws one eval step of a batch of n takes; into ``out`` when
+        given, as ``_train_noise``."""
+        return self._draw_eps(n) if out is None else self._draw_eps(n, out)
 
     def _device_data(self, ds):
         """(x [N, H, W, C] float32 in [0, 1], labels int64), on the device."""
@@ -114,99 +133,150 @@ class TrainerCore:
         fn = S.make_epoch_fn(step)
         return lambda bi: fn(data, labels, bi, draw_noise)
 
-    def _graphed_runner(self, ds, batch_size: int, style_on_device: bool):
-        """``run(batch_idx [n, B]) -> {metric: [n]}`` through the captured
-        train step of ``S.make_graphed_epoch_fn``, one per (dataset, B,
-        styling), made at first use. The entry keeps the dataset and its
-        resident arrays alive, so the key cannot name another one."""
-        key = (id(ds), batch_size, style_on_device)
-        if key not in self._graphs:
+    def _graphed(self, key, make, ds, style_on_device: bool, step,
+                 batch_size: int, draw_noise):
+        """The captured step of ``make`` (``S.make_graphed_epoch_fn`` or
+        ``S.GraphedEval``) under ``key``, made over ``ds``'s resident
+        arrays at first use, and made anew (the old one dropped with its
+        resident copy and memory pool) when ``key`` comes with another
+        dataset. The entry keeps its dataset alive, so an id in the key
+        cannot name another one."""
+        if key not in self._graphs or self._graphs[key][0] is not ds:
+            self._graphs.pop(key, None)
             labels = self._labels(ds)
             if style_on_device:
-                ep = S.make_graphed_epoch_fn(
-                    self.train_step, None, labels, batch_size,
-                    self._train_noise, styler=ds.style,
-                    style_arrays=self._style_arrays(ds))
+                fn = make(step, None, labels, batch_size, draw_noise,
+                          styler=ds.style,
+                          style_arrays=self._style_arrays(ds))
             else:
-                data, _ = self._device_data(ds)
-                ep = S.make_graphed_epoch_fn(self.train_step, data, labels,
-                                             batch_size, self._train_noise)
-            self._graphs[key] = (ds, ep)
-        ep = self._graphs[key][1]
+                fn = make(step, self._device_data(ds)[0], labels, batch_size,
+                          draw_noise)
+            self._graphs[key] = (ds, fn)
+        return self._graphs[key][1]
+
+    def _graphed_runner(self, ds, batch_size: int, style_on_device: bool):
+        """``run(batch_idx [n, B]) -> ([n, k] device tensor, keys)``
+        through the captured train step of ``S.make_graphed_epoch_fn``, one
+        per (dataset, B, styling)."""
+        ep = self._graphed((id(ds), batch_size, style_on_device),
+                           S.make_graphed_epoch_fn, ds, style_on_device,
+                           self.train_step, batch_size, self._train_noise)
+        return lambda batch_idx: (ep.run(batch_idx), ep.keys)
+
+    def _eager_runner(self, ds, style_on_device: bool):
+        """``run(batch_idx [n, B]) -> ([n, k] device tensor, keys)``
+        through the eager loop."""
+        eager = self._epoch_runner(ds, self.train_step, style_on_device,
+                                   self._train_noise)
 
         def run(batch_idx):
-            hist = ep.run(batch_idx).cpu().numpy()
-            return {k: hist[:, j] for j, k in enumerate(ep.keys)}
+            ms = eager(batch_idx)
+            return torch.stack([torch.stack(list(m.values())) for m in ms]), \
+                tuple(ms[0])
 
         return run
 
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
-            use_scan: bool = False, checkpoint_dir: str | None = None,
-            checkpoint_every: int = 10, logger=None,
-            style_on_device: bool = False, start_epoch: int = 0):
+            use_scan: bool = True, checkpoint_dir: str | None = None,
+            checkpoint_every: int = 10, logger=None, epochs_per_scan: int = 1,
+            style_on_device: bool = False, scan_unroll: int = 1,
+            scan_gather: str = "take", start_epoch: int = 0):
         """Train for ``epochs`` epochs from ``start_epoch``, which keys the
-        shuffles. Per-epoch metric arrays are appended to ``self.history``.
+        shuffles (the JAX package's ``fit``, trainers.py:93-260).
 
-        ``use_scan=True`` runs each batch as one replay of the train step
-        captured in a CUDA graph (``S.make_graphed_epoch_fn``): the same
-        updates from the same noise, one dispatch a step. The default is
-        the eager loop, where the JAX package turns its scan on by default:
-        moving it would move the downstream runner and the sweep onto the
-        graph too, a change of its own.
+        ``use_scan`` (default on) runs the train step as replays of a CUDA
+        graph that holds the whole step, gather and styling included
+        (``S.make_graphed_epoch_fn``): the same updates from the same noise
+        as the eager loop of ``use_scan=False``, one dispatch a step. On
+        the CPU the graph's body runs uncaptured. With it:
+
+        - ``epochs_per_scan`` = E runs E epochs a block, with no host
+          synchronisation between them; ``self.history`` then holds one
+          entry per block, {metric: [E]}, the last batch of each epoch,
+          and the verbose, validation, logging and checkpoint hooks fire
+          at block boundaries. Ignored on the styled path, as in JAX.
+        - ``scan_unroll`` and ``scan_gather`` are checked as JAX checks
+          them (a negative unroll, an unknown gather mode, and a gather
+          other than ``"take"`` on the styled path raise its errors) and
+          change nothing else: every step replays the one-step graph,
+          which gathers its batch inside the graph. Grouping the same
+          kernels differently gives the same numbers, and several steps
+          a graph measured no faster on an H100 (PERF.md).
+
+        Otherwise ``self.history`` gets one entry per epoch: {metric:
+        [n_batches]}.
 
         With ``checkpoint_dir`` the trainer state is saved every
         ``checkpoint_every`` epochs and at the end; with ``logger``
-        (``utils.logging.MetricLogger``) each epoch's last metrics and its
+        (``utils.logging.MetricLogger``) each block's last metrics and its
         images/sec are logged under the tag "train". A checkpoint holds the
         noise generator's state, so ``restore_checkpoint`` and then
         ``fit(start_epoch=k)`` reproduce the run that saved it.
 
         ``style_on_device`` (StyledDataset only) keeps only the raw images
         on the device and styles each batch there, keyed by (dataset seed,
-        absolute sample id): the same pixels as the materialized path.
-        In-fit validation then styles its batches the same way. Returns
-        ``_fit_result()``: None here, the loss histories in CLEAR-TC and
-        CLEAR-MIM."""
+        absolute sample id): the same pixels as the materialized path,
+        inside the graph with ``use_scan``. In-fit validation then styles
+        its batches the same way. Returns ``_fit_result()``: None here,
+        the loss histories in CLEAR-TC and CLEAR-MIM."""
+        if use_scan:
+            if scan_unroll < 0:
+                raise ValueError("`unroll` must be a `bool` or a "
+                                 "non-negative `int`.")
+            if style_on_device and scan_gather != "take":
+                raise ValueError("scan_gather is not supported on the "
+                                 "style_on_device path (styling keys off "
+                                 "per-batch sample ids)")
+            if scan_gather not in ("take", "permute_slice"):
+                raise ValueError(f"unknown gather mode: {scan_gather!r}")
         n = len(train_ds)
         batch_size = min(batch_size, n)  # tiny split: shrink, don't drop all
         n_batches = n // batch_size
-        if use_scan:
-            run = self._graphed_runner(train_ds, batch_size, style_on_device)
-        else:
-            eager = self._epoch_runner(train_ds, self.train_step,
-                                       style_on_device, self._train_noise)
+        run = (self._graphed_runner(train_ds, batch_size, style_on_device)
+               if use_scan else self._eager_runner(train_ds, style_on_device))
+        per_block = (max(1, int(epochs_per_scan))
+                     if use_scan and not style_on_device else 1)
 
-            def run(batch_idx):
-                ms = eager(batch_idx)
-                return {k: torch.stack([m[k] for m in ms]).cpu().numpy()
-                        for k in ms[0]}
+        def perm(epoch):
+            p = np.random.RandomState(self.seed + epoch).permutation(n)
+            return p[: n_batches * batch_size].reshape(n_batches, batch_size)
 
         end_epoch = start_epoch + epochs
-        for epoch in range(start_epoch, end_epoch):
+        epoch = start_epoch
+        while epoch < end_epoch:
+            block = min(per_block, end_epoch - epoch)
+            end = epoch + block          # the first epoch after this block
             t0 = time.perf_counter()
-            perm = np.random.RandomState(self.seed + epoch).permutation(n)
-            self.history.append(run(torch.as_tensor(
-                perm[: n_batches * batch_size].reshape(n_batches, batch_size),
-                device=self.device)))
+            idx = torch.as_tensor(np.stack([perm(e) for e in range(epoch, end)]),
+                                  device=self.device)
+            hists = [run(bi) for bi in idx]
+            keys = hists[0][1]
+            if per_block > 1:            # the last batch of each epoch
+                hist = torch.stack([h[-1] for h, _ in hists]).cpu().numpy()
+            else:
+                hist = hists[0][0].cpu().numpy()
+            self.history.append({k: hist[:, j] for j, k in enumerate(keys)})
             self._post_train_epoch(self.history[-1])
+            last = {k: v[-1] for k, v in self.history[-1].items()}
             if logger is not None:
                 dt = time.perf_counter() - t0
-                logger.log("train", step=self.train_step.step, epoch=epoch,
-                           images_per_sec=n / dt if dt > 0 else 0,
-                           **{k: float(v[-1])
-                              for k, v in self.history[-1].items()})
-            if epoch % self.verbose_period == 0:
-                last = {k: round(float(v[-1]), 3)
-                        for k, v in self.history[-1].items()}
-                print(f"epoch {epoch}: {last}")
+                logger.log("train", step=self.train_step.step, epoch=end - 1,
+                           images_per_sec=block * n / dt if dt > 0 else 0,
+                           **{k: float(v) for k, v in last.items()})
+            if any(e % self.verbose_period == 0 for e in range(epoch, end)):
+                print(f"epoch {end - 1}: "
+                      f"{ {k: round(float(v), 3) for k, v in last.items()} }")
                 if valid_ds is not None:
                     self._verbose_valid(
                         valid_ds, batch_size,
                         style_on_device=(style_on_device
-                                         and hasattr(valid_ds, "device_arrays")))
-            if checkpoint_dir and ((epoch + 1) % checkpoint_every == 0
-                                   or epoch + 1 == end_epoch):
-                self.save_checkpoint(checkpoint_dir, {"epoch": epoch})
+                                         and hasattr(valid_ds, "device_arrays")),
+                        use_scan=use_scan)
+            if checkpoint_dir and (any((e + 1) % checkpoint_every == 0
+                                       for e in range(epoch, end))
+                                   or end == end_epoch):
+                self.save_checkpoint(checkpoint_dir, {"epoch": end - 1})
+            epoch = end
         return self._fit_result()
 
     # -- checkpoints ---------------------------------------------------------
@@ -261,7 +331,8 @@ class TrainerCore:
     def _fit_result(self):
         return None
 
-    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False,
+                       use_scan=True):
         raise NotImplementedError
 
 
@@ -274,32 +345,60 @@ class VAETrainerBase(TrainerCore):
         super().__init__(model, verbose_period, seed, device)
         self.mig_backend = MT.resolve_backend(mig_backend)
 
-    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False,
+                       use_scan=True):
         mig, mse = self.evaluate(valid_ds, batch_size=batch_size,
-                                 style_on_device=style_on_device)
+                                 style_on_device=style_on_device,
+                                 use_scan=use_scan)
         print(f"gMIG: {round(mig, 3)}; mse: {round(float(mse), 3)}")
 
     @torch.no_grad()
-    def evaluate(self, ds, batch_size: int = 128, style_on_device: bool = False):
+    def evaluate(self, ds, batch_size: int = 128, use_scan: bool = True,
+                 style_on_device: bool = False):
         """(gMIG, reconstruction MSE) over the dataset in eval mode
-        (reference evaluate, trainer.py:495-570): the full batches, then the
-        ragged tail by one direct call; MSE is the mean of the per-batch
-        means. ``style_on_device`` styles each batch on the device from the
-        raw images, as ``fit`` does."""
-        run = self._epoch_runner(ds, self.eval_step, style_on_device,
-                                 self._eval_noise)
+        (reference evaluate, trainer.py:495-570; the JAX package's,
+        trainers.py:304-399): the full batches, then the ragged tail by one
+        direct call; MSE is the mean of the per-batch means, which
+        ``last_eval_totals`` holds for every scalar of the eval step.
+
+        ``use_scan`` (default on) runs the full batches as replays of the
+        eval step captured in a CUDA graph (``S.GraphedEval``, one per eval
+        step, batch size and styling, made anew for another dataset); on
+        the CPU its body runs uncaptured. ``use_scan=False`` is the eager
+        loop: the same numbers. ``style_on_device`` styles each batch on the device from
+        the raw images, as ``fit`` does, inside the graph with
+        ``use_scan``."""
         n = len(ds)
         bs = min(batch_size, n)
         nb = n // bs
-        outs = run(torch.arange(nb * bs, device=self.device).view(nb, bs))
-        if n > nb * bs:
-            outs += run(torch.arange(nb * bs, n, device=self.device)[None])
-        totals = {k: sum(o[k] for o in outs) for k, v in outs[0].items()
-                  if v.ndim == 0}
-        self.last_eval_totals = {k: float(v) / len(outs)
-                                 for k, v in totals.items()}
-        z_c = torch.cat([o["z_c"] for o in outs])
-        z_s = torch.cat([o["z_s"] for o in outs])
+        full = torch.arange(nb * bs, device=self.device).view(nb, bs)
+        eager = self._epoch_runner(ds, self.eval_step, style_on_device,
+                                   self._eval_noise)
+        if use_scan:
+            ge = self._graphed(("eval", id(self.eval_step), bs,
+                                style_on_device), S.GraphedEval, ds,
+                               style_on_device, self.eval_step, bs,
+                               self._eval_noise)
+            outs = ge.run(full)
+        else:
+            ms = eager(full)
+            outs = {k: (torch.cat([m[k] for m in ms]) if k in S.GraphedEval.LATENTS
+                        else torch.stack([m[k] for m in ms]))
+                    for k, v in ms[0].items()
+                    if v.ndim == 0 or k in S.GraphedEval.LATENTS}
+        tail = (eager(torch.arange(nb * bs, n, device=self.device)[None])[0]
+                if n > nb * bs else None)
+        # JAX's reduction: a float32 sum of the full batches' means, plus
+        # the tail's, over the number of batches
+        n_batches = nb + (tail is not None)
+        self.last_eval_totals = {
+            k: (float(v.cpu().numpy().sum())
+                + (float(tail[k]) if tail is not None else 0.0)) / n_batches
+            for k, v in outs.items() if k not in S.GraphedEval.LATENTS}
+        z_c, z_s = outs["z_c"], outs["z_s"]
+        if tail is not None:
+            z_c = torch.cat([z_c, tail["z_c"]])
+            z_s = torch.cat([z_s, tail["z_s"]])
         mig = MT.mutual_info_gap(self._labels(ds), z_c, z_s,
                                  backend=self.mig_backend)
         return mig, self.last_eval_totals["recon"]
@@ -363,14 +462,15 @@ class HierarchicalVAETrainer(VAETrainerBase):
 
     def evaluate(self, ds, batch_size: int = 128,
                  with_evidence_acc: bool | None = None,
-                 style_on_device: bool = False):
+                 style_on_device: bool = False, use_scan: bool = True):
         """(reference evaluate(..., with_evidence_acc), trainer.py:366-412).
-        ``None`` keeps the trainer's eval step, plain by default."""
+        ``None`` keeps the trainer's eval step, plain by default; each eval
+        step has its own graph."""
         prev = self.eval_step
         if with_evidence_acc is not None:
             self.eval_step = self._eval_steps[with_evidence_acc]
         try:
-            return super().evaluate(ds, batch_size,
+            return super().evaluate(ds, batch_size, use_scan=use_scan,
                                     style_on_device=style_on_device)
         finally:
             self.eval_step = prev
@@ -465,8 +565,11 @@ class ClearMIMVAETrainer(VAETrainerBase):
         return {"eps": eps, "perm": self._draw_perm(n, out["perm"]),
                 "inner": inner}
 
-    def _eval_noise(self, n: int):
-        return {"eps": self._draw_eps(n), "perm": self._draw_perm(n)}
+    def _eval_noise(self, n: int, out=None):
+        if out is None:
+            return {"eps": self._draw_eps(n), "perm": self._draw_perm(n)}
+        return {"eps": self._draw_eps(n, out["eps"]),
+                "perm": self._draw_perm(n, out["perm"])}
 
     def _post_train_epoch(self, history: dict):
         self.mi_losses.extend(history["mi_loss"].tolist())
@@ -492,7 +595,8 @@ class SimpleCNNTrainer(TrainerCore):
     def _train_noise(self, n: int, out=None):
         return None
 
-    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False):
+    def _verbose_valid(self, valid_ds, batch_size, style_on_device=False,
+                       use_scan=True):
         (aupr, auroc), acc = self.evaluate(valid_ds, batch_size,
                                            style_on_device=style_on_device)
         print("val_aupr:", aupr, "val_auroc:", auroc, "val_acc:",
@@ -532,7 +636,7 @@ class DownstreamMLPTrainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.mlp = ProbeMLP(self.vae_model.z_dim, n_class).to(self.device)
-        self.optimizer = torch.optim.Adam(self.mlp.parameters(), lr=lr)
+        self.optimizer = adam(lr, self.device)(self.mlp.parameters())
         self.verbose_period = verbose_period
         self.train_step = S.make_probe_step(self.vae_model, self.mlp,
                                             self.optimizer)
@@ -572,11 +676,16 @@ class DownstreamMLPTrainer:
                           for s in range(0, len(ds), batch_size)]), labels
 
     def fit(self, epochs: int, train_ds, valid_ds=None, batch_size: int = 128,
-            cache_features: bool = True, style_on_device: bool = False):
+            cache_features: bool = True, style_on_device: bool = False,
+            use_scan: bool = True):
         """Train the probe. With ``cache_features`` (the default) the frozen
         encoder runs once and the probe trains on the cached mu_c; epoch e
         is shuffled by ``RandomState(e)``. Validation runs after epoch 0 and
-        after every ``verbose_period``-th epoch."""
+        after every ``verbose_period``-th epoch. On cached features
+        ``use_scan`` (default on) replays the probe step captured in a CUDA
+        graph (``S.make_graphed_probe_epochs_fn``; its body uncaptured on
+        the CPU), the JAX package's one program for all the epochs;
+        ``use_scan=False`` steps eagerly, with the same numbers."""
         if style_on_device and not cache_features:
             raise ValueError("style_on_device probe training requires "
                              "cache_features=True (the cached-feature path "
@@ -587,6 +696,9 @@ class DownstreamMLPTrainer:
             n = len(labels)
             bs = min(batch_size, n)
             nb = n // bs
+            epochs_fn = (S.make_graphed_probe_epochs_fn(
+                self.mlp, self.optimizer, feats, labels, bs) if use_scan
+                else functools.partial(self._feat_epochs_fn, feats, labels))
 
             def _perm(epoch):
                 return (np.random.RandomState(epoch).permutation(n)
@@ -603,7 +715,7 @@ class DownstreamMLPTrainer:
                 bi = torch.as_tensor(np.stack([_perm(epoch + i)
                                                for i in range(e)]),
                                      device=self.device)
-                self._feat_epochs_fn(feats, labels, bi)
+                epochs_fn(bi)
                 epoch += e
                 if valid_ds is not None and (epoch - 1) % block == 0:
                     _, acc = self.evaluate(valid_ds, batch_size,

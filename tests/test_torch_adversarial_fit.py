@@ -125,8 +125,8 @@ def _overlay(kind):
                for kb in jax.random.split(k, N_EVAL // BS)]
     rng, k = jax.random.split(rng)
     eval_q.append(_draws(kind, jt, variables, k, N_EVAL % BS, False))
-    tt._train_noise = lambda n: train_q.pop(0)
-    tt._eval_noise = lambda n: eval_q.pop(0)
+    tt._train_noise = lambda n, out=None: train_q.pop(0)
+    tt._eval_noise = lambda n, out=None: eval_q.pop(0)
 
     jhist = []
     record = jt._post_train_epoch

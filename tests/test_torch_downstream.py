@@ -107,7 +107,7 @@ def test_styled_fit_and_evaluate_overlay_jax():
               for kk in jax.random.split(k, n_eval // bs)]
     rng, k = jax.random.split(rng)
     queue.append(_eps(jm, variables, k, n_eval % bs))
-    tt._draw_eps = lambda n: queue.pop(0)
+    tt._draw_eps = lambda n, out=None: queue.pop(0)
 
     jhist = []
     jt._post_train_epoch = jhist.append
@@ -155,6 +155,33 @@ def test_cli_writes_the_reference_schema_with_and_without_styling_on_device(
         assert np.isclose(r[part]["overall"],
                           np.mean(list(r[part]["stratified"].values())),
                           atol=1e-3)
+
+
+def test_cli_passes_epochs_per_scan_to_every_fit(tmp_path, monkeypatch):
+    """``--epochs_per_scan`` reaches the fit of the CNN entry and of a VAE
+    entry, as the JAX runner passes it (its styledmnist_downstream.py and
+    experiments/common.py): 2 epochs in one block leave one history entry,
+    the last batch of each epoch."""
+    from clearvae_torch.train import trainers as TT
+
+    seen = []
+    fit = TT.TrainerCore.fit
+
+    def recording_fit(self, *args, **kwargs):
+        out = fit(self, *args, **kwargs)
+        seen.append((type(self).__name__, kwargs.get("epochs_per_scan"),
+                     [len(h["loss"]) for h in self.history]))
+        return out
+
+    monkeypatch.setattr(TT.TrainerCore, "fit", recording_fit)
+    args = ARGS[: ARGS.index("--models")] + ["--device", "cpu"]
+    args[args.index("--epochs") + 1] = "2"
+    RUN.main(args + ["--models", "baseline", "gvae", "--epochs_per_scan",
+                     "2", "--out", str(tmp_path)])
+    assert seen == [("SimpleCNNTrainer", 2, [2]),
+                    ("HierarchicalVAETrainer", 2, [2])]
+    with open(tmp_path / "styledmnist-k1-7.json") as f:
+        assert list(json.load(f)) == ["baseline", "gvae"]
 
 
 def test_unported_zoo_entries_name_their_roadmap_item():

@@ -87,7 +87,8 @@ def test_graphed_epoch_equals_eager_fit_bitwise(kind):
     ds = _dataset()
     styled = kind == "clear-styled"
     eager, graphed = _trainer(kind), _trainer(kind)
-    r_eager = eager.fit(EPOCHS, ds, batch_size=BS, style_on_device=styled)
+    r_eager = eager.fit(EPOCHS, ds, batch_size=BS, use_scan=False,
+                        style_on_device=styled)
     r_graphed = graphed.fit(EPOCHS, ds, batch_size=BS, use_scan=True,
                             style_on_device=styled)
     assert eager.train_step.step == graphed.train_step.step == EPOCHS * (N // BS)
@@ -101,8 +102,10 @@ def test_graphed_epoch_equals_eager_fit_bitwise(kind):
     if r_eager is not None:
         np.testing.assert_array_equal(np.asarray(r_eager, dtype=object),
                                       np.asarray(r_graphed, dtype=object))
-    # one graphed epoch object, reused by the second epoch
+    # one graphed epoch object, reused by the second epoch; the eager
+    # reference built none, so the comparison is not the graph's with itself
     assert len(graphed._graphs) == 1
+    assert eager._graphs == {}
 
 
 @pytest.mark.parametrize("loc,scale", [(0.0, 1.0), (5.0, 2.0)])
@@ -125,17 +128,18 @@ def test_restore_between_graphed_fits_drops_the_graph(tmp_path):
     t = _trainer("clear-fused")
     t.fit(1, ds, batch_size=BS, use_scan=True,
           checkpoint_dir=str(tmp_path / "ck"))
-    first = t._graphs[(id(ds), BS, False)][1]
+    key = (id(ds), BS, False)
+    first = t._graphs[key][1]
     t.fit(1, ds, batch_size=BS, use_scan=True, start_epoch=1)
     # the same graphed epoch served both fits
-    assert t._graphs[(id(ds), BS, False)][1] is first
+    assert t._graphs[key][1] is first
     after_epoch1 = {k: v.clone() for k, v in t.model.state_dict().items()}
     hist1 = t.history[-1]
     t.restore_checkpoint(str(tmp_path / "ck"))
     assert t._graphs == {}
     assert t.train_step.step == N // BS
     t.fit(1, ds, batch_size=BS, use_scan=True, start_epoch=1)
-    assert t._graphs[(id(ds), BS, False)][1] is not first
+    assert t._graphs[key][1] is not first
     # epoch 1 again from the restored weights, moments and generator: the
     # same steps as the first time
     for k in hist1:

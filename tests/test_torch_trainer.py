@@ -71,7 +71,7 @@ def test_fit_and_evaluate_overlay_jax():
     rng, k = jax.random.split(rng)
     eval_eps.append(_eps(jm, variables, k, N_EVAL % BS))
     queue += eval_eps
-    tt._draw_eps = lambda n: queue.pop(0)
+    tt._draw_eps = lambda n, out=None: queue.pop(0)
 
     jhist = []
     jt._post_train_epoch = jhist.append
