@@ -15,8 +15,9 @@ Phases, each fatal on failure:
                 ring, singleton-label rows), ps on and off; K1's backward
                 with a non-unit cotangent; two K1, K2f and K2b calls
                 bit-identical; K1 one launch a call each way, K2f and K2b
-                one launch a call (profiler). Timed at B = 128 and 2048 with
-                CUDA events and, per call, the profiler's device time. The
+                one launch a call (profiler). Timed at (B, z/2) = (128, 8),
+                (2048, 8) and (128, 32), phase 8's shape, with CUDA events
+                and, per call, the profiler's device time. The
                 styler K3: all seven codes × severities 1–5 at B = 128, 100
                 and 512 (atol 1e-3 on the 0..255 scale), and rows of
                 negative code left bit-equal in a pre-filled ``out``; timed
@@ -119,8 +120,34 @@ Phases, each fatal on failure:
                 images/sec) and the fused-loss kernels counted by name in
                 the device trace of 20 replays.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 6 (phases 5 and 7 train on phase
-3's data).
+8. sixty-four — the 64×64 family at the runners' widths (VAE64, z = 64,
+                B = 128, β = 1/32, τ = 0.1, α = 100, Adam 3e-5) on synthetic
+                CelebA (2,048 images, 1,740 / 308): one VAE64 step fused
+                against unfused on the card (phase 5's bars); the fused CLEAR
+                trainer (``get_clearvae_trainer(vae_arch="VAE64", ...,
+                hyperparameter={"fused": True})``) fit 2 epochs eagerly and
+                graphed under ``cudnn.deterministic``, equal at 0.0, K1's
+                forward and backward once a step by replay, then the graphed
+                ``evaluate`` (K2f twice a batch, finite MIG and MSE); its
+                steps timed by ``bench.time_steps`` (wall, device busy, idle
+                share, kernels a step, images/sec, FLOP share) with the K1
+                kernel of the trace the ``<32, true>`` instance and the top
+                device kernels of a graphed step; fused CLEAR-TC 1 epoch
+                (K2f = K2b = 1 a step by replay); LAM-CNN64 fit graphed and
+                eagerly, equal at 0.0, and an epoch of its replays under
+                ``set_sync_debug_mode("error")``; the perf mode (bf16 conv
+                stacks, fused heads) fit and evaluated, finite, and timed;
+                ``bench.py``'s ``vae64_clear`` and ``vae64_bf16_b256`` rows;
+                then the runners through their ``main`` at cut depth
+                (``RUNNERS64``: CelebA k = 1, 2 epochs, seven entries;
+                Camelyon17 1 epoch, eight with the LAM-CNN; PACS and CheXpert
+                k = 1, 1 epoch, clear and baseline; the CelebA MIG/ELBO sweep
+                1 epoch, eight), each result in the JAX schema with finite
+                values, and no fused-loss or styling kernel launched (the zoo
+                is unfused and the 64×64 sets come styled).
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8 (phases 5 and 7 train on
+phase 3's data).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -154,7 +181,8 @@ PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
 SHAPES = [(128, 8), (100, 7), (128, 16), (100, 12), (128, 32), (100, 24),
           (100, 48), (2048, 8), (2048, 64), (17, 8)]
 RING_SHAPE = (2048, 64)
-TIMED = [(128, 8), (2048, 8)]       # B=128, z=8 is the main path's shape
+# B=128, z=8 is the main path's shape; z=32 the 64×64 path's (phase 8)
+TIMED = [(128, 8), (2048, 8), (128, 32)]
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
 SOURCE = {"clear_latent_fwdgrad": "clearvae_torch/csrc/clear_latent.cu",
           "clear_latent_bwd": "clearvae_torch/csrc/clear_latent.cu",
@@ -193,6 +221,29 @@ MIG_ARGS = ["--n_total", "12000", "--epochs", "1", "--batch_size", "128",
 MIG_ZOO = ["clear-ps", "clear-neg", "bvae", "clear-tc", "clear-mim (L1OutUB)",
            "clear-mim (CLUB-S)", "mlvae", "gvae"]
 MIG_TOL = dict(rtol=1e-3, atol=1e-3)   # tests/test_native.py's bars
+# phase 8: the 64×64 runners' widths (reference run_celeba_downstream_expr.py:
+# 225-238): VAE64, z = 64 (K1's 32-wide instance), B = 128, β = 1/32, τ = 0.1,
+# α = 100, Adam 3e-5, the latent losses fused
+SIXTY_FOUR = dict(vae_arch="VAE64", in_channel=3, z_dim=64, beta=1 / 32,
+                  vae_lr=3e-5, alpha=100, temperature=0.1, seed=0,
+                  hyperparameter={"fused": True}, device="cuda")
+N64 = 2048              # synthetic CelebA images, the runners' default
+STEPS64 = 12            # steps a turn of bench.time_steps (12·128 ≤ 1,740)
+# each runner: its module, its arguments (depth cut), its result file, and
+# the zoo entries it must write (None: its whole zoo)
+RUNNERS64 = [
+    ("celeba_downstream", ["--k_max", "1", "--epochs", "2"],
+     "celeba-k1-0.json", None),
+    ("camelyon17_downstream", ["--epochs", "1", "--cnn_epochs", "1"],
+     "camelyon17-k1-0.json", None),
+    ("pacs_downstream", ["--k_max", "1", "--epochs", "1", "--models", "clear",
+                         "baseline"], "pacs-k1-0.json", ["baseline", "clear"]),
+    ("chexpert_downstream", ["--k_max", "1", "--epochs", "1", "--models",
+                             "clear", "baseline"], "chexpert-k1-0.json",
+     ["baseline", "clear"]),
+    ("mig_expr_celeba", ["--epochs", "1", "--mig_backend", "auto"],
+     "mig_elbo_s0_a100.0_z16_t0.1.csv", MIG_ZOO),
+]
 
 
 def fail(msg: str):
@@ -354,7 +405,7 @@ def _inputs(b, z, seed, dev):
 def phase_kernels():
     """Each fused-loss kernel against its plain twin on the card; returns
     per-kernel max errors and timings (CUDA-event ms and profiler device us
-    per call, keyed by (name, B))."""
+    per call, keyed by (name, B, z))."""
     from clearvae_torch.ops.kernels import fused_loss as FL
 
     dev = torch.device("cuda")
@@ -460,7 +511,7 @@ def phase_kernels():
                               cuda_ms(plain))
             dus, n_k = device_us(kern)
             bms, by, unit = bound(name, b, z, lbl, True)
-            times[(name, b)] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+            times[(name, b, z)] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                                     bound_ms=bms, bound_by=by, bound_unit=unit,
                                     device_us=dus)
             print(f"[kernels] {name} B={b} z={z}: kernel {k1:.4f}/{k2:.4f} ms "
@@ -563,42 +614,57 @@ def chunk_batches(n: int, chunk: int):
             for s in range(0, n, chunk)]
 
 
-def _small_step_check(dev):
-    """One CLEAR step, fused vs unfused, from the same weights and noise."""
+def _step_check(dev, tag, build, x_shape, n_class: int, beta: float,
+                lr: float):
+    """One CLEAR step of the VAE ``build()`` makes (seeded), fused against
+    unfused, from the same weights and draws on the card: metrics within
+    rtol 1e-4, atol 1e-5 and the parameters within max(1e-3·max|w|,
+    1.2e-3), phase 5's bars (Adam turns float noise in the zero gradients
+    of the biases ahead of BatchNorm into ±lr moves)."""
     import copy
 
     from clearvae_torch.config import AnnealConfig, ContrastiveConfig
-    from clearvae_torch.models.vae import VAE
     from clearvae_torch.train.steps import make_clear_vae_step
 
     torch.manual_seed(0)
-    base = VAE(total_z_dim=16).to(dev)
+    base = build().to(dev)
     g = torch.Generator(device="cpu").manual_seed(1)
-    x = torch.rand(32, 28, 28, 1, generator=g).to(dev)
-    lbl = torch.randint(0, 10, (32,), generator=g).to(dev)
-    eps = torch.randn(2, 32, 8, generator=g).to(dev)
+    b = x_shape[0]
+    x = torch.rand(x_shape, generator=g).to(dev)
+    lbl = torch.randint(0, n_class, (b,), generator=g).to(dev)
+    eps = torch.randn(2, b, base.z_dim, generator=g).to(dev)
     out = {}
     for fused in (True, False):
         model = copy.deepcopy(base)
-        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
-        step = make_clear_vae_step(model, opt, AnnealConfig(beta=1 / 8),
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        step = make_clear_vae_step(model, opt, AnnealConfig(beta=beta),
                                    ContrastiveConfig(alpha=100.0, fused=fused))
-        out[fused] = {k: float(v) for k, v in step(x, lbl, eps.unbind(0)).items()}
-    for k, v in out[False].items():
-        if not math.isclose(out[True][k], v, rel_tol=1e-4, abs_tol=1e-5):
-            fail(f"fused vs unfused step on the card: {k} {out[True][k]} vs {v}")
-    print(f"[main] one step fused == unfused within rtol 1e-4: {out[True]}")
-
+        m = step(x, lbl, eps.unbind(0))
+        out[fused] = ({k: float(v) for k, v in m.items()}, model.state_dict())
+    (mf, sf), (mu, su) = out[True], out[False]
+    for k, v in mu.items():
+        if not math.isclose(mf[k], v, rel_tol=1e-4, abs_tol=1e-5):
+            fail(f"{tag} step fused vs unfused on the card: {k} {mf[k]} vs {v}")
+    worst = 0.0
+    for k, v in su.items():
+        err = float((sf[k].double() - v.double()).abs().max())
+        worst = max(worst, err)
+        if err > max(1e-3 * float(v.abs().max()), 1.2e-3):
+            fail(f"{tag} step fused vs unfused: {k} off by {err:.3e}")
+    print(f"{tag} one step (B={b}, z={2 * base.z_dim}) fused == unfused on "
+          f"the card; params max |diff| {worst:.2e}: {mf}")
 
 def phase_main(gpu):
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist, train_valid_split
+    from clearvae_torch.models.vae import VAE
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.train.factories import get_clearvae_trainer
 
     dev = torch.device("cuda")
-    _small_step_check(dev)
+    _step_check(dev, "[main]", lambda: VAE(total_z_dim=16), (32, 28, 28, 1),
+                10, 1 / 8, 5e-4)
     t0 = time.perf_counter()
     imgs, labels = synthetic_mnist(9600, seed=0)
     train_ds, valid_ds = train_valid_split(make_styled_mnist(imgs, labels, seed=0))
@@ -1537,6 +1603,279 @@ def phase_mig(gpu, here):
     return {**other, "style_batch": k3}
 
 
+def _k1_instance(kernels_by_name) -> str:
+    """The name of the K1 forward kernel in a device trace; fails unless it
+    is the <32, true> instance (32 columns a half, float4 rows)."""
+    names = [k for k in kernels_by_name if "clear_latent_fwdgrad_kernel" in k]
+    if len(names) != 1 or "clear_latent_fwdgrad_kernel<32, true>" not in names[0]:
+        fail(f"the K1 forward kernels in the trace are {names}, not the "
+             f"<32, true> instance alone")
+    return names[0]
+
+
+def _timed64(tag, trainer, train_ds, gpu, flops, batch: int = 128):
+    """``bench.time_steps`` of a 64×64 trainer: eager and graphed steps in
+    turns; prints wall, device busy, idle share, kernels a step, images/sec
+    and the FLOP share over the fp32 peak; returns the stats."""
+    from clearvae_torch.bench import PEAK_FP32_FLOPS, time_steps
+
+    stats = time_steps(trainer, train_ds, n=STEPS64, batch=batch)
+    for mode, r in stats.items():
+        if not r["kernels_by_name"]:
+            fail(f"{tag} {mode}: the profiler recorded no kernel")
+        print(f"[sixty-four] {tag} {mode} step (B={batch}, {STEPS64} steps a "
+              f"turn): wall {'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms,"
+              f" device busy {r['device_busy_ms']:.3f} ms, idle share "
+              f"{'/'.join(f'{s:.3f}' for s in r['idle_share'])}, "
+              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
+              f"{'/'.join(f'{i:.1f}' for i in r['images_per_sec'])}, FLOP "
+              f"share {max(r['images_per_sec']) * flops / PEAK_FP32_FLOPS:.4f}"
+              f" (fp32 peak); {gpu}")
+    return stats
+
+
+def _sync_free_replays(tag, trainer, train_ds):
+    """One epoch of a graphed trainer's train-step replays under
+    ``set_sync_debug_mode("error")``: a synchronizing call between the
+    first and the last replay raises."""
+    ep = trainer._graphs[(id(train_ds), 128, False)][1]
+    if ep.graph is None:
+        fail(f"{tag}: the graphed fit captured no graph")
+    rows = _epoch_rows(len(train_ds), 98)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ep.run(rows)
+    except RuntimeError as exc:
+        fail(f"{tag}: a synchronizing call inside the replay loop: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[sixty-four] {tag}: {len(rows)} replays with no synchronizing "
+          f"call (sync debug mode 'error')")
+
+
+def _run_runner64(name, args, out_dir):
+    """One 64×64 runner through its ``main`` on the card, its launch counts
+    zeroed just before and read just after; returns (seconds, launches)."""
+    import importlib
+
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+
+    mod = importlib.import_module(f"clearvae_torch.experiments.{name}")
+    FL.reset_launches()
+    K3.reset_launches()
+    t0 = time.perf_counter()
+    mod.main(args + ["--seed", "0", "--device", "cuda", "--out", out_dir])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {**FL.LAUNCHES,
+                                      "style_batch": K3.LAUNCHES["style"]}
+
+
+def _check_result64(name, path, names):
+    """The runner's result in the JAX schema, every value finite: the
+    downstream JSON ({entry: {acc, pr, roc}} in the zoo's order) or the
+    sweep's CSV (model, beta, mig, elbo; eight rows in JAX's order)."""
+    import csv
+
+    if path.endswith(".csv"):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        if rows[0] != ["model", "beta", "mig", "elbo"] or \
+                [r[0] for r in rows[1:]] != names or not all(
+                    math.isfinite(float(v)) for r in rows[1:] for v in r[1:]):
+            fail(f"{name}: the sweep CSV is malformed or not finite: {rows}")
+        return f"{len(rows) - 1} rows, MIG " + ", ".join(
+            f"{r[0]} {float(r[2]):.4f}" for r in rows[1:])
+    with open(path) as f:
+        res = json.load(f)
+    ok = list(res) == names and all(
+        set(r) == {"acc", "pr", "roc"} and 0 <= r["acc"] <= 1
+        and all(set(r[p]) == {"overall", "stratified"}
+                and math.isfinite(r[p]["overall"])
+                and all(math.isfinite(v) for v in r[p]["stratified"].values())
+                for p in ("pr", "roc"))
+        for r in res.values())
+    if not ok:
+        fail(f"{name}: the result JSON is malformed or not finite: {res}")
+    return ", ".join(f"{k} acc {r['acc']}" for k, r in res.items())
+
+
+def phase_sixty_four(gpu, here):
+    """The 64×64 family on the card (see the module docstring); returns
+    {kernel: launches} summed over the phase's fused fits and evaluations,
+    each counted from zero just before it and read just after."""
+    import shutil
+
+    from clearvae_torch import bench
+    from clearvae_torch.data.celeba import get_celeba
+    from clearvae_torch.data.common import train_valid_split_array
+    from clearvae_torch.experiments.downstream64 import (PERF_VAE_KWARGS,
+                                                         model_zoo64)
+    from clearvae_torch.models.vae import VAE64
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.train.factories import (get_clearvae_trainer,
+                                                get_cleartcvae_trainer,
+                                                get_lamcnn_trainer)
+
+    dev = torch.device("cuda")
+    total = {k: 0 for k in (*REPLACES, "style_batch")}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _step_check(dev, "[sixty-four] VAE64", lambda: VAE64(total_z_dim=64),
+                (128, 64, 64, 3), 4, 1 / 32, 3e-5)
+    print(f"[sixty-four] step check {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train, valid = train_valid_split_array(get_celeba(None, n_synthetic=N64,
+                                                      seed=0), 0.85, 0)
+    print(f"[sixty-four] synthetic CelebA: {len(train)} train / {len(valid)} "
+          f"held-out 64×64×3 images in {time.perf_counter() - t0:.2f} s")
+    flops = bench.clear_vae_train_flops_per_image(batch=128, **bench.SHAPE64)
+    det = torch.backends.cudnn.deterministic
+
+    # 1. fused CLEAR on VAE64: eager and graphed fits equal, K1 by replay
+    kw = {**SIXTY_FOUR, "ps": True}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, le = _graph_fit(get_clearvae_trainer, kw, train, 2,
+                               use_scan=False)
+        t_eager = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graphed, lg = _graph_fit(get_clearvae_trainer, kw, train, 2)
+        t_graphed = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = det
+    n = graphed.train_step.step
+    if n != eager.train_step.step or n != 2 * (len(train) // 128):
+        fail(f"VAE64 CLEAR: {eager.train_step.step} eager and {n} graphed "
+             f"updates")
+    want = {"clear_latent_fwdgrad": n, "clear_latent_bwd": n, "snn_fwd": 0,
+            "snn_bwd": 0, "style_batch": 0}
+    if lg != want or le != want:
+        fail(f"VAE64 CLEAR: launches eager {le}, graphed (replays) {lg}; "
+             f"expected {want}")
+    diff = _same_training("VAE64 CLEAR graphed vs eager", eager, graphed)
+    for k in total:
+        total[k] += lg[k]
+    FL.reset_launches()
+    t0 = time.perf_counter()
+    mig, mse = graphed.evaluate(valid, batch_size=128)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    n_eval = -(-len(valid) // 128)
+    if FL.LAUNCHES["snn_fwd"] != 2 * n_eval or not (math.isfinite(mig)
+                                                    and math.isfinite(mse)):
+        fail(f"VAE64 CLEAR evaluate: K2f {FL.LAUNCHES['snn_fwd']} for "
+             f"{n_eval} batches, MIG {mig}, MSE {mse}")
+    total["snn_fwd"] += FL.LAUNCHES["snn_fwd"]
+    hist = np.concatenate([h["loss"] for h in graphed.history])
+    print(f"[sixty-four] VAE64 fused CLEAR: {n} graphed updates == eager "
+          f"(histories and state equal, max abs diff {diff:.1e}, "
+          f"cudnn.deterministic); fit {t_graphed:.2f} s graphed, {t_eager:.2f}"
+          f" s eager (2 epochs each, warm-up and capture included); loss "
+          f"{hist[0]:.2f} -> {hist[-1]:.2f}; launches by replay {lg}; "
+          f"evaluate {t_eval:.2f} s: MIG {mig:.4f}, MSE {mse:.3f}, K2f "
+          f"{FL.LAUNCHES['snn_fwd']} = 2 x {n_eval} batches")
+    stats = _timed64("VAE64 CLEAR fused", graphed, train, gpu, flops)
+    k1 = _k1_instance(stats["graphed"]["kernels_by_name"])
+    top = sorted(stats["graphed"]["ms_by_name"].items(), key=lambda kv: -kv[1])
+    print(f"[sixty-four] graphed step's K1: {k1}, "
+          f"{stats['graphed']['kernels_by_name'][k1] / STEPS64:g} a step; "
+          f"top device kernels (ms a step):")
+    for name, ms in top[:8]:
+        print(f"[sixty-four]   {ms:.4f}  {name[:100]}")
+
+    # 2. fused CLEAR-TC on VAE64: K2f and K2b once a step, by replay
+    t0 = time.perf_counter()
+    tc, lt = _graph_fit(get_cleartcvae_trainer,
+                        {**SIXTY_FOUR, "la": 1, "factor_cls_lr": 1e-4},
+                        train, 1)
+    n = tc.train_step.step
+    want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0, "snn_fwd": n,
+            "snn_bwd": n, "style_batch": 0}
+    if lt != want or not all(np.isfinite(v).all() for h in tc.history
+                             for v in h.values()):
+        fail(f"VAE64 CLEAR-TC: launches {lt}, expected {want}; or a "
+             f"non-finite metric")
+    for k in total:
+        total[k] += lt[k]
+    print(f"[sixty-four] VAE64 fused CLEAR-TC: {n} graphed updates in "
+          f"{time.perf_counter() - t0:.2f} s; launches by replay {lt}")
+
+    # 3. LAM-CNN64: graphed and eager fits equal; replays free of syncs
+    lam_kw = dict(n_class=4, lam_coef=0.001, cnn_arch="LAMCNN64Classifier",
+                  in_channel=3, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        lam_e, _ = _graph_fit(get_lamcnn_trainer, lam_kw, train, 2,
+                              use_scan=False)
+        lam_g, _ = _graph_fit(get_lamcnn_trainer, lam_kw, train, 2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if lam_g.train_step.step != lam_e.train_step.step:
+        fail("LAM-CNN64: the graphed and eager fits took other step counts")
+    diff = _same_training("LAM-CNN64 graphed vs eager", lam_e, lam_g)
+    (_, _), acc = lam_g.evaluate(valid, batch_size=128)
+    if list(lam_g.history[0]) != ["ce_loss", "lam_loss"] or not \
+            math.isfinite(acc):
+        fail(f"LAM-CNN64: history keys {list(lam_g.history[0])}, acc {acc}")
+    print(f"[sixty-four] LAM-CNN64: {lam_g.train_step.step} graphed updates =="
+          f" eager (max abs diff {diff:.1e}); ce_loss "
+          f"{lam_g.history[-1]['ce_loss'][-1]:.4f}, lam_loss "
+          f"{lam_g.history[-1]['lam_loss'][-1]:.4f}; held-out acc {acc:.3f}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    _sync_free_replays("LAM-CNN64", lam_g, train)
+
+    # 4. perf mode: bf16 conv stacks + fused heads
+    t0 = time.perf_counter()
+    FL.reset_launches()
+    perf = get_clearvae_trainer(**kw, vae_kwargs=dict(PERF_VAE_KWARGS))
+    perf.fit(2, train, batch_size=128)
+    pmig, pmse = perf.evaluate(valid, batch_size=128)
+    torch.cuda.synchronize()
+    lp = dict(FL.LAUNCHES)
+    if not (math.isfinite(pmig) and math.isfinite(pmse)) or \
+            lp["clear_latent_fwdgrad"] != perf.train_step.step:
+        fail(f"perf mode: MIG {pmig}, MSE {pmse}, launches {lp}")
+    for k in REPLACES:
+        total[k] += lp[k]
+    print(f"[sixty-four] perf mode (bf16, fused heads): fit + evaluate "
+          f"{time.perf_counter() - t0:.2f} s, MIG {pmig:.4f}, MSE "
+          f"{pmse:.3f}; launches {lp}")
+    _timed64("VAE64 CLEAR fused, perf mode bf16", perf, train, gpu, flops)
+    # bench.py's 64×64 rows
+    for row, (batch, bf16) in bench.ROWS64.items():
+        rflops = bench.clear_vae_train_flops_per_image(batch=batch,
+                                                       **bench.SHAPE64)
+        r = bench.row_stats(bench.make_trainer(row),
+                            bench.data64(STEPS64 * batch), STEPS64, rflops,
+                            bench.PEAK_BF16_FLOPS if bf16
+                            else bench.PEAK_FP32_FLOPS, batch)
+        print(f"[sixty-four] bench {row}: " + json.dumps(r))
+
+    # 5. the runners through their entry points, at cut depth
+    out_root = os.path.join(here, ".runs", "chip_smoke_64")
+    shutil.rmtree(out_root, ignore_errors=True)    # results are manifests
+    zoo = list(model_zoo64(4, {"beta": 1, "vae_lr": 1, "z_dim": 64,
+                               "alpha": 1, "temperature": 1}, 0))
+    for name, args, fname, names in RUNNERS64:
+        if names is None:
+            names = zoo + (["lam-cnn"] if name.startswith("camelyon") else [])
+        out = os.path.join(out_root, name)
+        secs, launches = _run_runner64(name, args, out)
+        if any(launches.values()):
+            fail(f"{name}: the unfused zoo launched {launches}")
+        summary = _check_result64(name, os.path.join(out, fname), names)
+        print(f"[sixty-four] {name} {' '.join(args)}: {secs:.2f} s, "
+              f"{len(names)} entries; {summary}; {gpu}")
+    print(f"[sixty-four] whole phase {time.perf_counter() - t_phase:.2f} s; "
+          f"launches on its fused fits and evaluations {total}")
+    return total
+
+
 def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
@@ -1677,9 +2016,10 @@ def main():
     graph = phase_graph(gpu, train_ds, valid_ds, here)
     down = phase_downstream(gpu, here)
     mig = phase_mig(gpu, here)
+    s64 = phase_sixty_four(gpu, here)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
                       "graph": graph[name], "downstream": down[name],
-                      "mig": mig[name]}
+                      "mig": mig[name], "sixty-four": s64[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
@@ -1690,9 +2030,13 @@ def main():
     for name, path in own.items():
         if by_path[name][path] == 0:
             fail(f"{name} was launched no time on the {path} path")
+    # this slice's path, the 64×64 one, runs every fused-loss kernel
+    for name in REPLACES:
+        if by_path[name]["sixty-four"] == 0:
+            fail(f"{name} was launched no time on the sixty-four path")
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=by_path[name][own[name]],
-                    max_abs_err=errs[name], **times[(name, 128)],
+                    max_abs_err=errs[name], **times[(name, 128, 8)],
                     library_ms=None, launches_by_path=by_path[name])
                for name in REPLACES]
     kernels.append(dict(name="style_batch", route="cuda", source=K3_SOURCE,
@@ -1701,10 +2045,11 @@ def main():
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path=by_path["style_batch"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
-          f"(phases 1-7, the build included)")
+          f"(phases 1-8, the build included)")
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
-                      "b2048": {n: times[(n, 2048)] for n in REPLACES},
+                      "b2048": {n: times[(n, 2048, 8)] for n in REPLACES},
+                      "b128_z32": {n: times[(n, 128, 32)] for n in REPLACES},
                       "b512": {"style_batch": k3_times[512]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Training throughput of the port on one card: the flagship, CLEAR-TC and
-CLEAR-MIM rows of the repository's ``bench.py``, each eager and graphed.
+"""Training throughput of the port on one card: the flagship, CLEAR-TC,
+CLEAR-MIM and the two 64×64 rows of the repository's ``bench.py``, each
+eager and graphed.
 
     python -m clearvae_torch.bench [--steps 20]
 
@@ -9,14 +10,19 @@ Flagship configuration (reference run_styledmnist_downstream_expr.py:
 for the TC and MIM c_loss). CLEAR-TC: λ = 1, factor Adam 1e-4. CLEAR-MIM:
 CLUB-S, λ = 3, estimator Adam 2e-3. Each trainer comes from its factory
 (seed 0) and trains on synthetic Styled-MNIST digits, styled once on the
-card. Each row is timed by ``time_steps``, the port's one step timer
+card. The 64×64 rows (``ROWS64``, ``bench.py``'s ``vae64_clear`` and
+``vae64_bf16_b256``): the same CLEAR trainer on ``VAE64``, z = 64, on
+uniform random 64×64×3 images with labels 0..9 as ``bench.py`` makes them,
+float32 at B = 128 and bfloat16 conv stacks at B = 256. Each row is timed
+by ``time_steps``, the port's one step timer
 (``chip_smoke.py`` and ``experiments/kernel_ab.py`` time with it too):
 eager and graphed steps in turns on the same batches.
 
 Prints one JSON line: per row and mode, images/sec and the FLOP share per
 turn (the analytic training FLOPs a second over the card's fp32 peak; TF32
-stays off, as in ``chip_smoke.py``, so the convolutions run on the fp32
-units), the step's walls, device-busy time, idle share and kernels a step.
+stays off, as in ``chip_smoke.py``, so the float32 convolutions run on the
+fp32 units; the bfloat16 row over the dense bf16 tensor-core peak), the
+step's walls, device-busy time, idle share and kernels a step.
 The FLOP count is ``bench.py``'s (``clear_vae_train_flops_per_image``),
 copied here because the port imports nothing of the JAX package's files.
 Needs a CUDA card; imports nothing of JAX.
@@ -33,6 +39,7 @@ import time
 BATCH = 128
 Z_DIM = 16
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 
 def _conv_macs(size: int, chans, kernel: int) -> tuple[int, int, int]:
@@ -98,12 +105,40 @@ ROWS = {
 }
 
 
+# bench.py's 64×64 rows: (batch, bfloat16 conv stacks)
+ROWS64 = {"vae64_clear": (128, False), "vae64_bf16_b256": (256, True)}
+SHAPE64 = dict(z_dim=64, size=64, in_ch=3)
+
+
 def make_trainer(kind: str, device: str = "cuda"):
     """The row's trainer from its factory (seed 0)."""
     from clearvae_torch.train import factories as TF
 
+    if kind in ROWS64:
+        import torch
+
+        kw = {"vae_kwargs": {"dtype": torch.bfloat16}} if ROWS64[kind][1] \
+            else {}
+        return TF.get_clearvae_trainer(
+            **{**COMMON, "z_dim": SHAPE64["z_dim"]}, ps=True,
+            vae_arch="VAE64", in_channel=SHAPE64["in_ch"], device=device,
+            **kw)
     name, kw = ROWS[kind]
     return getattr(TF, name)(**COMMON, **kw, device=device)
+
+
+def data64(n: int):
+    """``bench.py``'s 64×64 data: uniform [n, 64, 64, 3] images and labels
+    0..9 from ``RandomState(0)``."""
+    import numpy as np
+
+    from clearvae_torch.data.common import ArrayDataset
+
+    rs = np.random.RandomState(0)
+    size, ch = SHAPE64["size"], SHAPE64["in_ch"]
+    images = rs.rand(n, size, size, ch).astype(np.float32)
+    labels = rs.randint(0, 10, n)
+    return ArrayDataset(images, labels, np.zeros(n, np.int64))
 
 
 def device_kernels(prof) -> tuple[dict, dict, float]:
@@ -155,9 +190,9 @@ def profile_window():
 
 
 def time_steps(trainer, ds, n: int = 20,
-               trace_dir: str | None = None) -> dict:
+               trace_dir: str | None = None, batch: int = BATCH) -> dict:
     """The port's step timer: ``n`` train steps of ``trainer`` on the same
-    ``n`` batches of ``BATCH`` images of ``ds`` (a fixed permutation of the
+    ``n`` batches of ``batch`` images of ``ds`` (a fixed permutation of the
     materialized path's resident data), eager (``make_epoch_fn``, the loop
     of ``fit``) and graphed (``make_graphed_epoch_fn``, one replay a step)
     where the package has it. After one warm-up run of each mode (the
@@ -168,8 +203,9 @@ def time_steps(trainer, ds, n: int = 20,
 
     Per mode: ``walls_ms`` a step (per turn), ``wall_ms`` (their least),
     ``device_busy_ms`` a step, ``idle_share`` (1 - busy / wall, per turn),
-    ``kernels_per_step``, ``images_per_sec`` (per turn) and
-    ``kernels_by_name`` (launches in the profiled run). It uses only what
+    ``kernels_per_step``, ``images_per_sec`` (per turn),
+    ``kernels_by_name`` (launches in the profiled run) and ``ms_by_name``
+    (their device ms a step). It uses only what
     older checkouts of the package also have (they time eagerly only), so
     ``experiments/kernel_ab.py`` times a parent tree with the same code."""
     import os
@@ -181,12 +217,12 @@ def time_steps(trainer, ds, n: int = 20,
 
     data, labels = trainer._device_data(ds)
     rows = torch.as_tensor(np.random.RandomState(1).permutation(len(labels))
-                           [: n * BATCH].reshape(n, BATCH), device=labels.device)
+                           [: n * batch].reshape(n, batch), device=labels.device)
     eager = S.make_epoch_fn(trainer.train_step)
     fns = {"eager": lambda: eager(data, labels, rows, trainer._train_noise)}
     if hasattr(S, "make_graphed_epoch_fn"):
         graphed = S.make_graphed_epoch_fn(trainer.train_step, data, labels,
-                                          BATCH, trainer._train_noise)
+                                          batch, trainer._train_noise)
         fns["graphed"] = lambda: graphed.run(rows)
     for fn in fns.values():
         fn()
@@ -202,7 +238,7 @@ def time_steps(trainer, ds, n: int = 20,
         for _ in range(3):     # a profile with no kernel is the profiler's loss
             with profile_window() as prof:
                 fn()
-            counts, _, busy_us = device_kernels(prof)
+            counts, us, busy_us = device_kernels(prof)
             if counts:
                 break
         if trace_dir:
@@ -215,9 +251,24 @@ def time_steps(trainer, ds, n: int = 20,
             device_busy_ms=busy,
             idle_share=[1 - busy / w for w in walls[mode]],
             kernels_per_step=sum(counts.values()) / n,
-            images_per_sec=[BATCH * 1e3 / w for w in walls[mode]],
-            kernels_by_name=counts)
+            images_per_sec=[batch * 1e3 / w for w in walls[mode]],
+            kernels_by_name=counts,
+            ms_by_name={k: v / 1e3 / n for k, v in us.items()})
     return out
+
+
+def row_stats(trainer, ds, steps: int, flops: float, peak: float,
+              batch: int = BATCH) -> dict:
+    """One row of the bench: ``time_steps`` of the trainer per mode, with
+    the FLOP share of each turn against ``peak``."""
+    row = {"flops_per_image": flops, "batch": batch, "peak_flops": peak}
+    for mode, r in time_steps(trainer, ds, n=steps, batch=batch).items():
+        row[mode] = {
+            "images_per_sec": r["images_per_sec"],
+            "flop_share": [i * flops / peak for i in r["images_per_sec"]],
+            **{k: r[k] for k in ("walls_ms", "device_busy_ms", "idle_share",
+                                 "kernels_per_step")}}
+    return row
 
 
 def main(argv=None):
@@ -247,16 +298,14 @@ def main(argv=None):
     configs = {}
     for kind in ROWS:
         flops = clear_vae_train_flops_per_image(variant=kind)
-        row = {"flops_per_image": flops}
-        for mode, r in time_steps(make_trainer(kind, args.device), ds,
-                                  n=args.steps).items():
-            row[mode] = {
-                "images_per_sec": r["images_per_sec"],
-                "flop_share": [i * flops / PEAK_FP32_FLOPS
-                               for i in r["images_per_sec"]],
-                **{k: r[k] for k in ("walls_ms", "device_busy_ms",
-                                     "idle_share", "kernels_per_step")}}
-        configs[kind] = row
+        configs[kind] = row_stats(make_trainer(kind, args.device), ds,
+                                  args.steps, flops, PEAK_FP32_FLOPS)
+    for kind, (batch, bf16) in ROWS64.items():
+        flops = clear_vae_train_flops_per_image(batch=batch, **SHAPE64)
+        configs[kind] = row_stats(
+            make_trainer(kind, args.device), data64(args.steps * batch),
+            args.steps, flops, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
+            batch)
     print(json.dumps({
         "metric": "images_per_sec", "batch": BATCH, "z_dim": Z_DIM,
         "steps": args.steps, "peak_fp32_flops": PEAK_FP32_FLOPS,

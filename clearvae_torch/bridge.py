@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's flax variables → state dicts of the
-port's modules of the same names (``VAE``, ``ProbeMLP``, ``FactorCls``, the
-MI estimators, ``SimpleCNN``).
+port's modules of the same names (``VAE`` and ``VAE64``, ``ProbeMLP``,
+``FactorCls``, the MI estimators, ``SimpleCNN``, ``SimpleCNN64`` and the
+LAM classifiers).
 
 Takes the variables as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so it needs no JAX import. The map (after
@@ -8,9 +9,10 @@ scripts/reference_twin.py:67-140, without its flatten permutation: the port
 flattens in flax's (H, W, C) order):
 
 - Conv kernels HWIO → OIHW;
-- ConvTranspose kernels flip(h, w) then HWIO → IOHW: the JAX layer is a
-  cross-correlation over the lhs-dilated input, torch's ConvTranspose2d
-  applies its kernel unflipped in the output domain;
+- ConvTranspose kernels (3×3, and VAE64's 4×4) flip(h, w) then HWIO →
+  IOHW: the JAX layer is a cross-correlation over the lhs-dilated input,
+  torch's ConvTranspose2d applies its kernel unflipped in the output
+  domain;
 - Dense kernels [in, out] → Linear weights [out, in];
 - BatchNorm scale/bias → weight/bias, batch_stats mean/var → running stats.
 """
@@ -142,15 +144,22 @@ def mi_params_from_flax(params: dict) -> dict:
 
 
 def cnn_params_from_flax(params: dict, batch_stats: dict) -> dict:
-    """State dict of ``clearvae_torch.models.cnn.SimpleCNN`` from the JAX
-    package's ``SimpleCNN`` variables."""
-    if sorted(params) != ["hidden", "hidden_bn", "net", "out"]:
-        raise ValueError(f"not a SimpleCNN's parameters: {sorted(params)}")
+    """State dict of a ``clearvae_torch.models.cnn`` classifier from the
+    JAX package's variables of the same class: ``SimpleCNN`` /
+    ``SimpleCNN64`` (hidden Linear + BN + output Linear) or ``LAMCNN`` /
+    ``LAMCNN64`` (the linear ``cls_head``)."""
+    heads = {("hidden", "hidden_bn", "net", "out"), ("cls_head", "net")}
+    if tuple(sorted(params)) not in heads:
+        raise ValueError(f"not a SimpleCNN's or LAMCNN's parameters: "
+                         f"{sorted(params)}")
     sd: dict = {}
     used = _conv_stack(sd, "net", params["net"], batch_stats["net"])
     if used != set(params["net"]):
         raise ValueError("flax parameters left unmapped: "
                          f"{sorted(set(params['net']) - used)}")
+    if "cls_head" in params:
+        _dense(sd, "cls_head", params["cls_head"]["Dense_0"])
+        return _tensors(sd)
     _dense(sd, "hidden", params["hidden"]["Dense_0"])
     _bn(sd, "hidden_bn", params["hidden_bn"], batch_stats["hidden_bn"])
     _dense(sd, "out", params["out"]["Dense_0"])
@@ -194,9 +203,12 @@ def trainer_state_from_flax(state, trainer) -> dict:
     port trainer's ``state_dict()``, for ``trainer.load_state_dict``:
     weights, Adam's moments and counts, and the update count. The optimizers'
     hyperparameters (their ``param_groups``) and the noise generator's state
-    are the trainer's own. ``state``'s leaves are numpy arrays."""
+    are the trainer's own. ``state``'s leaves are numpy arrays. The model
+    is a VAE (28×28 or 64×64) or a CNN classifier (``net`` trunk)."""
     batch_stats = state.batch_stats
-    maps = {"model": lambda p: params_from_flax(p, batch_stats),
+    model_map = cnn_params_from_flax if "net" in state.params \
+        else params_from_flax
+    maps = {"model": lambda p: model_map(p, batch_stats),
             "factor_cls": factor_params_from_flax,
             "mi_estimator": mi_params_from_flax}
     flax = {"model": (state.params, state.opt_state),

@@ -46,7 +46,8 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
                   probe_epochs: int | None = None,
                   resume_path: str | None = None,
                   epochs_per_scan: int = 1,
-                  style_on_device: bool = False) -> dict:
+                  style_on_device: bool = False,
+                  cnn_epochs: int | None = None) -> dict:
     """Train every (factory, params) entry and collect the reference's result
     schema: {model: {acc, pr: {overall, stratified}, roc: {...}}}
     (reference run_styledmnist_downstream_expr.py:190-216).
@@ -55,7 +56,9 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
     in it are skipped, and each finished model is written at once. A
     ``SimpleCNNTrainer`` entry is trained and tested as a classifier; every
     other entry is a VAE judged by the probe. ``epochs_per_scan`` goes to
-    every entry's ``fit``, as in ``experiment_helper``."""
+    every entry's ``fit``, as in ``experiment_helper``. ``cnn_epochs``
+    overrides ``epochs`` for the classifier entries (the Camelyon17
+    notebook trains its CNNs 6 epochs against the VAEs' 7)."""
     results = {}
     if resume_path and os.path.exists(resume_path):
         with open(resume_path) as f:
@@ -68,7 +71,8 @@ def run_model_zoo(models: dict, train_ds, valid_ds, test_ds, epochs: int,
         print(f"\nTraining {model_name}:")
         trainer = trainer_func(**params)
         if isinstance(trainer, SimpleCNNTrainer):
-            trainer.fit(epochs, train_ds, valid_ds, batch_size=batch_size,
+            trainer.fit(cnn_epochs if cnn_epochs is not None else epochs,
+                        train_ds, valid_ds, batch_size=batch_size,
                         epochs_per_scan=epochs_per_scan,
                         style_on_device=style_on_device)
             (aupr, auroc), acc = trainer.evaluate(

@@ -16,6 +16,11 @@ public boundary, which stays NHWC as in the JAX package.
   as in the JAX package; ``update_stats=False`` normalizes a train-mode
   batch by its own statistics and leaves the running ones as they were (the
   JAX package's train-mode apply whose ``batch_stats`` update is dropped).
+- A compute ``dtype`` (the JAX package's ``dtype`` field): the parameters
+  stay float32 and are cast to ``dtype`` on each call, so a conv stack in
+  bfloat16 computes in bfloat16 while Adam updates float32 weights.
+  ``BatchNorm`` keeps its statistics in float32 whatever its input and
+  returns its input's dtype, as flax's BatchNorm does for bfloat16 inputs.
 """
 
 from __future__ import annotations
@@ -51,6 +56,26 @@ def conv_transpose2d(cin: int, cout: int, kernel: int, stride: int,
     return conv
 
 
+def cast_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``conv`` on ``x`` with input, weight and bias cast to ``dtype`` (a
+    no-op in float32): flax's Conv with a compute ``dtype``."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
+def cast_conv_transpose(convt: nn.ConvTranspose2d, x: torch.Tensor,
+                        dtype) -> torch.Tensor:
+    """``convt`` on ``x`` computed in ``dtype``, as ``cast_conv``."""
+    return F.conv_transpose2d(x.to(dtype), convt.weight.to(dtype),
+                              convt.bias.to(dtype), convt.stride,
+                              convt.padding, convt.output_padding)
+
+
+def cast_linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``lin`` on ``x`` computed in ``dtype``, as ``cast_conv``."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
 def linear(fin: int, fout: int) -> nn.Linear:
     lin = nn.Linear(fin, fout)
     _uniform_fan_in_(lin.weight, fin)
@@ -60,7 +85,9 @@ def linear(fin: int, fout: int) -> nn.Linear:
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of [N, C] or [N, C, H, W] with flax's running
-    statistics (momentum 0.1, eps 1e-5, biased variance)."""
+    statistics (momentum 0.1, eps 1e-5, biased variance). The statistics
+    and the normalization are computed in float32 and the result is cast
+    to the input's dtype."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -73,6 +100,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 update_stats: bool = True) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
+        dtype, x = x.dtype, x.float()
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
             mean = x.mean(dims)
@@ -86,16 +114,19 @@ class BatchNorm(nn.Module):
         elif not train:
             mean, var = self.running_mean, self.running_var
         mul = self.weight * torch.rsqrt(var + self.eps)
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return ((x - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(dtype)
 
 
 class ConvBNReluStack(nn.Module):
     """[Conv -> BN -> ReLU]* trunk + flatten in (H, W, C) order, the JAX
-    package's NHWC flatten (reference: vae.py:15-26)."""
+    package's NHWC flatten (reference: vae.py:15-26), computed in
+    ``dtype``."""
 
     def __init__(self, in_channel: int, channels, kernel: int, stride: int,
-                 padding: int):
+                 padding: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         cins = (in_channel,) + tuple(channels[:-1])
         self.convs = nn.ModuleList(conv2d(ci, co, kernel, stride, padding)
                                    for ci, co in zip(cins, channels))
@@ -104,5 +135,5 @@ class ConvBNReluStack(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 update_stats: bool = True) -> torch.Tensor:
         for conv, bn in zip(self.convs, self.bns):
-            x = F.relu(bn(conv(x), train, update_stats))
+            x = F.relu(bn(cast_conv(conv, x, self.dtype), train, update_stats))
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -5,7 +5,13 @@ reference code/src/models/vae.py:7-102).
 flatten 2048, four Linear heads (mu_c, logvar_c, mu_s, logvar_s), decoder
 Linear(2z→2048)+BN+ReLU → (4,4,128) → ConvT(64,3,s2,p1,op0)→7² →
 ConvT(32,3,s2,p1,op1)→14² → ConvT(in,3,s2,p1,op1)→28², with BN after every
-ConvT, the last one included, before the sigmoid (vae.py:44).
+ConvT, the last one included, before the sigmoid (vae.py:44). ``VAE64``
+(64×64): 5 conv / 5 ConvT stages with 4×4 kernels, channels 32…512, the
+2×2×512 trunk (reference vae.py:105-156).
+
+``dtype`` is the conv stacks' compute dtype (the decoder's Linear
+included); the parameters, the latent heads, the losses and the decoder's
+output stay float32, as in the JAX package (vae.py:63,117).
 
 The public layout is NHWC, as in the JAX package; the flatten is in
 (H, W, C) order, so flax's Dense kernels map by a transpose alone. The
@@ -24,18 +30,19 @@ from torch import nn
 from torch.nn import functional as F
 
 from clearvae_torch.models.layers import (BatchNorm, ConvBNReluStack,
+                                          cast_conv_transpose, cast_linear,
                                           conv_transpose2d, linear)
 from clearvae_torch.ops.group import accumulate_group_evidence, group_reparam
 
 
 class _Decoder(nn.Module):
     """Linear → BN → ReLU → reshape → [ConvT → BN → ReLU]* → ConvT → BN →
-    sigmoid."""
+    sigmoid, computed in ``dtype``; the reconstruction is float32."""
 
     def __init__(self, z_total: int, spatial: int, channels, kernel: int,
-                 output_paddings):
+                 output_paddings, dtype=torch.float32):
         super().__init__()
-        self.spatial, self.c0 = spatial, channels[0]
+        self.spatial, self.c0, self.dtype = spatial, channels[0], dtype
         self.dense = linear(z_total, spatial * spatial * channels[0])
         self.convts = nn.ModuleList(
             conv_transpose2d(ci, co, kernel, 2, 1, op)
@@ -45,13 +52,13 @@ class _Decoder(nn.Module):
             + [BatchNorm(co) for co in channels[1:]])
 
     def forward(self, z: torch.Tensor, train: bool) -> torch.Tensor:
-        h = F.relu(self.bns[0](self.dense(z), train))
+        h = F.relu(self.bns[0](cast_linear(self.dense, z, self.dtype), train))
         x = h.view(-1, self.spatial, self.spatial, self.c0).permute(0, 3, 1, 2)
         last = len(self.convts) - 1
         for i, (convt, bn) in enumerate(zip(self.convts, self.bns[1:])):
-            x = bn(convt(x), train)
+            x = bn(cast_conv_transpose(convt, x, self.dtype), train)
             x = torch.sigmoid(x) if i == last else F.relu(x)
-        return x.permute(0, 2, 3, 1)
+        return x.permute(0, 2, 3, 1).float()
 
 
 class VAE(nn.Module):
@@ -72,16 +79,16 @@ class VAE(nn.Module):
 
     def __init__(self, total_z_dim: int, in_channel: int = 1,
                  image_size: int = 28, group_mode: str | None = None,
-                 n_classes: int = 10, fused_heads: bool = False,
-                 first_conv_pack: bool = False):
+                 n_classes: int = 10, dtype=torch.float32,
+                 fused_heads: bool = False, first_conv_pack: bool = False):
         super().__init__()
         self.total_z_dim, self.in_channel = total_z_dim, in_channel
-        self.image_size = image_size
+        self.image_size, self.dtype = image_size, dtype
         self.group_mode, self.n_classes = group_mode, n_classes
         self.fused_heads, self.first_conv_pack = fused_heads, first_conv_pack
         zd = self.z_dim
         self.encoder = ConvBNReluStack(in_channel, self.enc_channels,
-                                       self.enc_kernel, 2, 1)
+                                       self.enc_kernel, 2, 1, dtype)
         flat = self.dec_spatial * self.dec_spatial * self.enc_channels[-1]
         if fused_heads:
             self.latent_heads = linear(flat, 4 * zd)
@@ -94,7 +101,8 @@ class VAE(nn.Module):
                         + tuple(reversed(self.enc_channels[:-1]))
                         + (in_channel,))
         self.decoder = _Decoder(total_z_dim, self.dec_spatial, dec_channels,
-                                self.dec_kernel, self.dec_output_paddings)
+                                self.dec_kernel, self.dec_output_paddings,
+                                dtype)
 
     @property
     def z_dim(self) -> int:
@@ -105,7 +113,7 @@ class VAE(nn.Module):
         """(mu_c, logvar_c, mu_s, logvar_s) of an NHWC batch — reference
         vae.py:48-50. ``update_stats=False`` runs train mode without moving
         the running statistics."""
-        h = self.encoder(x.permute(0, 3, 1, 2), train, update_stats)
+        h = self.encoder(x.permute(0, 3, 1, 2), train, update_stats).float()
         if self.fused_heads:
             return tuple(self.latent_heads(h).chunk(4, dim=-1))
         return (self.mu_c_head(h), self.logvar_c_head(h),
@@ -145,3 +153,19 @@ class VAE(nn.Module):
         z_s = mu_s + eps[1] * torch.exp(0.5 * logvar_s)
         z = torch.cat([z_c, z_s], dim=-1)
         return self.decode(z, train), latent_params, z
+
+
+class VAE64(VAE):
+    """64×64 variant (reference: code/src/models/vae.py:105-156): RGB by
+    default, 5 conv / 5 ConvT stages with 4×4 kernels, the decoder starting
+    from 2×2×512."""
+
+    enc_channels = (32, 64, 128, 256, 512)
+    enc_kernel = 4
+    dec_spatial = 2
+    dec_kernel = 4
+    dec_output_paddings = (0, 0, 0, 0, 0)
+
+    def __init__(self, total_z_dim: int, in_channel: int = 3,
+                 image_size: int = 64, **kwargs):
+        super().__init__(total_z_dim, in_channel, image_size, **kwargs)

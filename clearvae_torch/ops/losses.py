@@ -199,6 +199,12 @@ def lam_loss(feature_x: Tensor, feature_x_tilde: Tensor, y: Tensor,
              linear_w: Tensor) -> Tensor:
     """Mean squared difference of class-weighted feature contributions
     between an image and its stratified-shuffle partner. ``linear_w`` is the
-    linear head's weight, [n_class, feat]."""
-    diff = (feature_x - feature_x_tilde) * linear_w[y]
+    linear head's weight, [n_class, feat]. Each sample's row of it is
+    taken by a one-hot product, the exact row, whose backward is a matmul:
+    the backward of an indexing scatter-adds into the weight in an order
+    that varies from call to call (atomics on a card, threads on the CPU),
+    and a graphed step would then not repeat its eager twin bit for bit."""
+    one_hot = (y[:, None] == torch.arange(linear_w.shape[0],
+                                          device=y.device)).to(linear_w.dtype)
+    diff = (feature_x - feature_x_tilde) * (one_hot @ linear_w)
     return (diff ** 2).sum(1).mean()

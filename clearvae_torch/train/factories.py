@@ -7,7 +7,11 @@ The CLEAR, CLEAR-TC and CLEAR-MIM factories also take ``hyperparameter``,
 keys added to the trainer's dict; ``{"fused": True}`` routes the latent
 losses through the CUDA kernels (K1 for CLEAR; K2f forward and K2b backward
 of c_loss for CLEAR-TC and CLEAR-MIM). ``trainer_from_config`` builds one
-of them from a typed ``config.ClearVAEConfig``.
+of them from a typed ``config.ClearVAEConfig``. ``vae_arch`` / ``cnn_arch``
+name any architecture of ``registry.MODELS`` (``"VAE64"``,
+``"SimpleCNN64Classifier"``, ``"LAMCNN64Classifier"`` for the 64×64
+pipelines, with ``in_channel``), and ``vae_kwargs`` goes to the VAE, e.g.
+the perf mode's ``{"dtype": torch.bfloat16, "fused_heads": True}``.
 
 Adam is ``trainers.adam``: ``fused`` and ``capturable`` on a CUDA device,
 so that one optimizer serves the eager step and the captured one (``fit``'s
@@ -26,7 +30,9 @@ from clearvae_torch.registry import MODELS
 from clearvae_torch.train.trainers import (CLEARVAETrainer, ClearMIMVAETrainer,
                                            ClearTCVAETrainer,
                                            HierarchicalVAETrainer,
-                                           SimpleCNNTrainer, adam)
+                                           LAMCNNTrainer, SimpleCNNTrainer,
+                                           adam)
+
 
 def _seeded(seed: int, build):
     with torch.random.fork_rng(devices=[]):
@@ -45,6 +51,16 @@ def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
     return SimpleCNNTrainer(cnn, _adam(1e-4, device), verbose_period, seed, device)
+
+
+def get_lamcnn_trainer(n_class, lam_coef, cnn_arch: str = "LAMCNNClassifier",
+                       in_channel: int = 1, verbose_period: int = 5,
+                       seed: int = 0, device=None, **_) -> LAMCNNTrainer:
+    """reference trainer_utils.py:37-56 (Adam lr 1e-4)."""
+    cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
+                                                 in_channel=in_channel))
+    return LAMCNNTrainer(cnn, _adam(1e-4, device), {"lam_coef": lam_coef},
+                         verbose_period, seed, device)
 
 
 def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,

@@ -21,8 +21,9 @@ probe.
 injected by a test): the reparameterization's (eps_c, eps_s) for the CLEAR,
 hierarchical and eval steps; a pair of them for CLEAR-TC (its two
 forwards); a dict for CLEAR-MIM (``eps``, ``perm`` for CLUBSample's
-negatives, ``inner``, one [B, z] normal per estimator update). The CNN
-step draws nothing.
+negatives, ``inner``, one [B, z] normal per estimator update); the two
+uniform [B] draws of the LAM-CNN step's stratified shuffle. The CNN step
+draws nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from clearvae_torch.models.cnn import lam_head_weight
 from clearvae_torch.ops import losses as L
 from clearvae_torch.ops.group import grouped_kl
 from clearvae_torch.ops.kernels.counts import GraphLaunches
@@ -407,6 +409,56 @@ class CNNStep(_Counted):
 
 def make_cnn_step(model, optimizer) -> CNNStep:
     return CNNStep(model, optimizer)
+
+
+def stratified_shuffle(x: torch.Tensor, label: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """ss_pairing: x with its rows shuffled within each label stratum
+    (reference LAMCNNTrainer.ss_pairing, trainer.py:249-257), by the JAX
+    package's double sort (steps.py:490-501): with ``u`` = (u1, u2), two
+    uniform [B] draws, s1 and s2 order the rows by (label, u1) and (label,
+    u2), each by two stable sorts (np.lexsort's order, ties by index), and
+    row s1[i] takes row s2[i]. No host synchronisation: capturable."""
+
+    def by_label_then(key):
+        o = torch.sort(key, stable=True).indices
+        return o[torch.sort(label[o], stable=True).indices]
+
+    s1, s2 = by_label_then(u[0]), by_label_then(u[1])
+    perm = torch.empty_like(s2)
+    perm[s1] = s2
+    return x[perm]
+
+
+class LAMCNNStep(_Counted):
+    """One LAM-CNN step (``make_lam_cnn_step``): cross-entropy of the
+    logits plus ``lam_coef`` × the LAM loss between the features of x and
+    of its stratified shuffle x̃, weighted by the linear head's rows of
+    each label. ``noise`` = the shuffle's uniforms [2, B]. As in the JAX
+    step only the logits pass moves the BatchNorm running statistics: the
+    features of x are that pass's trunk output (the JAX step computes them
+    again, with the same values), and x̃'s pass normalizes by its own batch
+    statistics with ``update_stats=False``."""
+
+    def __init__(self, model, optimizer, lam_coef: float):
+        self.model, self.optimizer, self.lam_coef = model, optimizer, lam_coef
+        self._init_count(model)
+
+    def __call__(self, x, label, noise):
+        self.optimizer.zero_grad(set_to_none=True)
+        x_tilde = stratified_shuffle(x, label, noise)
+        feats = self.model.features(x, train=True)
+        feats_t = self.model.features(x_tilde, train=True, update_stats=False)
+        ce = _ce(self.model.head(feats, train=True), label)
+        lam = L.lam_loss(feats, feats_t, label, lam_head_weight(self.model))
+        (ce + self.lam_coef * lam).backward()
+        self.optimizer.step()
+        self.count.add_(1)
+        return {"ce_loss": ce.detach(), "lam_loss": lam.detach()}
+
+
+def make_lam_cnn_step(model, optimizer, lam_coef: float) -> LAMCNNStep:
+    return LAMCNNStep(model, optimizer, lam_coef)
 
 
 def make_cnn_logits_fn(model):

@@ -623,6 +623,26 @@ class SimpleCNNTrainer(TrainerCore):
         return MT.auc(logits, y), MT.accuracy(logits, y)
 
 
+class LAMCNNTrainer(SimpleCNNTrainer):
+    """Cross-entropy + the LAM regularizer (reference LAMCNNTrainer,
+    trainer.py:235-288): ``hyperparameter["lam_coef"]`` weighs it. Each
+    step's stratified shuffle takes two uniform [B] draws from the
+    trainer's generator, made outside the captured step as the VAEs' noise
+    is. The history holds ``ce_loss`` and ``lam_loss``."""
+
+    def __init__(self, model, optimizer, hyperparameter: dict,
+                 verbose_period: int = 5, seed: int = 0, device=None):
+        super().__init__(model, optimizer, verbose_period, seed, device)
+        self.train_step = S.make_lam_cnn_step(self.model, self.optimizer,
+                                              hyperparameter["lam_coef"])
+
+    def _train_noise(self, n: int, out=None):
+        if out is None:
+            return torch.rand((2, n), generator=self.generator,
+                              device=self.device)
+        return torch.rand((2, n), generator=self.generator, out=out)
+
+
 class DownstreamMLPTrainer:
     """MLP probe on the frozen VAE's mu_c (reference DownstreamMLPTrainer,
     trainer.py:95-165; the JAX package's trainers.py:659-824), on the VAE

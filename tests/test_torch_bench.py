@@ -36,3 +36,28 @@ def test_rows_are_the_flagship_tc_and_mim():
 def test_refuses_the_cpu():
     with pytest.raises(SystemExit, match="CUDA"):
         TB.main(["--device", "cpu"])
+
+
+def test_rows64_are_the_root_bench_vae64_rows():
+    """``vae64_clear`` and ``vae64_bf16_b256`` with the shapes of the
+    repository bench's rows (z = 64, 64×64×3; B = 128 fp32, B = 256 bf16),
+    a CLEAR trainer on VAE64, and its data as the root bench makes it."""
+    import numpy as np
+    import torch
+
+    extra = _root_bench().EXTRA_CONFIGS
+    for name, (batch, bf16) in TB.ROWS64.items():
+        cfg, flops_kw = extra[name]
+        assert cfg.get("batch", 128) == batch
+        assert (cfg.get("dtype") == "bf16") == bf16
+        assert {k: cfg[k] for k in ("z_dim", "size", "in_ch")} == TB.SHAPE64
+        assert {k: flops_kw[k] for k in TB.SHAPE64} == TB.SHAPE64
+        t = TB.make_trainer(name, device="cpu")
+        assert type(t.model).__name__ == "VAE64"
+        assert t.model.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert (t.model.total_z_dim, t.model.in_channel) == (64, 3)
+    ds = TB.data64(8)
+    rs = np.random.RandomState(0)
+    np.testing.assert_array_equal(ds.images,
+                                  rs.rand(8, 64, 64, 3).astype(np.float32))
+    np.testing.assert_array_equal(ds.labels, rs.randint(0, 10, 8))

@@ -27,6 +27,15 @@ import clearvae_torch.experiments.mig_expr
 import clearvae_torch.serve, clearvae_torch.bench
 import clearvae_torch.utils.checkpoint, clearvae_torch.utils.logging
 import clearvae_torch.utils.visual
+import clearvae_torch.data.common, clearvae_torch.data.synth64
+import clearvae_torch.data.celeba, clearvae_torch.data.pacs
+import clearvae_torch.data.camelyon17, clearvae_torch.data.chexpert
+import clearvae_torch.experiments.downstream64
+import clearvae_torch.experiments.celeba_downstream
+import clearvae_torch.experiments.pacs_downstream
+import clearvae_torch.experiments.camelyon17_downstream
+import clearvae_torch.experiments.chexpert_downstream
+import clearvae_torch.experiments.mig_expr_celeba
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
@@ -57,7 +66,8 @@ def test_entry_point_needs_cuda_or_an_explicit_cpu(monkeypatch):
                                              la=3, mi_estimator_lr=2e-3)),
             (F.get_hierarchical_vae_trainer, dict(beta=1 / 8, vae_lr=5e-4,
                                                   z_dim=16, group_mode="GVAE")),
-            (F.get_cnn_trainer, dict(n_class=10))):
+            (F.get_cnn_trainer, dict(n_class=10)),
+            (F.get_lamcnn_trainer, dict(n_class=2, lam_coef=0.001))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             factory(**kw)
     from clearvae_torch.models.vae import VAE

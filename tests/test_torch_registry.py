@@ -1,7 +1,8 @@
 """The port's name registries and ``trainer_from_config`` against the JAX
-package's: the same names for what the port has, a clear error for what it
-does not, and, for each kind of config, the same trainer built through the
-same factory, whose first forward from bridged weights matches JAX's."""
+package's: the same names, each building its architecture as JAX's does,
+and, for each kind of config (``arch="vae64"`` too), the same trainer built
+through the same factory, whose first forward from bridged weights matches
+JAX's."""
 
 import dataclasses
 
@@ -28,17 +29,53 @@ FACTORIES = ("get_clearvae_trainer", "get_cleartcvae_trainer",
 
 
 def test_models_are_the_jax_names_of_the_ported_architectures():
-    assert set(TR.MODELS) | set(TR.NOT_PORTED) == set(JR.MODELS)
-    assert not set(TR.MODELS) & set(TR.NOT_PORTED)
+    assert list(TR.MODELS) == list(JR.MODELS)
     for name, cls in TR.MODELS.items():
         assert cls.__name__ == JR.MODELS[name].__name__, name
     assert TF.MODELS is TR.MODELS
 
 
-@pytest.mark.parametrize("name", TR.NOT_PORTED)
-def test_unported_architectures_name_the_roadmap_item(name):
-    with pytest.raises(KeyError, match="ROADMAP item 15"):
-        TR.MODELS[name]
+# the 64×64 and LAM names, which came with the 64×64 slice
+NAMES_64_LAM = ("vae64", "simple_cnn64", "lam_cnn", "lam_cnn64", "VAE64",
+                "SimpleCNN64Classifier", "LAMCNNClassifier",
+                "LAMCNN64Classifier")
+
+
+def _abstract_variables(jm, size, in_ch):
+    """The flax variables' shapes, without computing them."""
+    shapes = jax.eval_shape(
+        lambda: jm.init({"params": jax.random.key(0),
+                         "reparam": jax.random.key(1)},
+                        jnp.zeros((2, size, size, in_ch))))
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
+@pytest.mark.parametrize("name", NAMES_64_LAM)
+def test_64x64_and_lam_architectures_build_as_in_jax(name):
+    """Each name builds the port's class of the JAX class's name with its
+    defaults (classes, channels, image size), and the JAX module's
+    variables bridge onto it: every parameter and buffer, the same
+    shapes."""
+    from clearvae_torch.bridge import cnn_params_from_flax
+
+    jcls, tcls = JR.MODELS[name], TR.MODELS[name]
+    assert tcls.__name__ == jcls.__name__
+    if "vae" in name.lower():
+        jm, tm = jcls(total_z_dim=64), tcls(total_z_dim=64)
+        assert (tm.in_channel, tm.image_size, tm.z_dim) == (
+            jm.in_channel, jm.image_size, jm.z_dim)
+        v = _abstract_variables(jm, jm.image_size, jm.in_channel)
+        sd = params_from_flax(v["params"], v["batch_stats"])
+    else:
+        jm, tm = jcls(), tcls()
+        assert (tm.n_class, tm.in_channel) == (jm.n_class, jm.in_channel)
+        assert tm.linear_head == jm.linear_head
+        v = _abstract_variables(jm, jm.image_size, jm.in_channel)
+        sd = cnn_params_from_flax(v["params"], v["batch_stats"])
+    ours = tm.state_dict()
+    assert set(sd) == set(ours)
+    for k, t in sd.items():
+        assert t.shape == ours[k].shape, k
 
 
 def test_estimator_and_loss_registries_match_jax():
@@ -147,7 +184,17 @@ def test_trainer_from_config_matches_jax(kind, monkeypatch):
                                    err_msg=f"{kind} {k}")
 
 
-def test_trainer_from_config_refuses_unported_architectures():
-    cfg = TCfg.ClearVAEConfig(model=TCfg.ModelConfig(arch="vae64"))
-    with pytest.raises(KeyError, match="ROADMAP item 15"):
-        TF.trainer_from_config(cfg, device="cpu")
+def test_trainer_from_config_builds_vae64(monkeypatch):
+    """``arch="vae64"`` (RGB, z = 64): the same factory with the same
+    fields as JAX's, a CLEAR trainer on ``VAE64``."""
+    tcfg, jcfg = (C.ClearVAEConfig(model=C.ModelConfig(
+        arch="vae64", total_z_dim=64, in_channel=3)) for C in (TCfg, JCfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    factory, kw = _dispatch(TF, tcfg, monkeypatch, device="cpu")
+    assert kw.pop("device") == "cpu"
+    assert (factory, kw) == _dispatch(JF, jcfg, monkeypatch)
+    assert kw["vae_arch"] == "VAE64" and kw["in_channel"] == 3
+    tt = TF.trainer_from_config(tcfg, device="cpu")
+    assert type(tt).__name__ == "CLEARVAETrainer"
+    assert type(tt.model).__name__ == "VAE64"
+    assert (tt.model.total_z_dim, tt.model.in_channel) == (64, 3)
