@@ -146,8 +146,30 @@ Phases, each fatal on failure:
                 values, and no fused-loss or styling kernel launched (the zoo
                 is unfused and the 64×64 sets come styled).
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8 (phases 5 and 7 train on
-phase 3's data).
+9. artifacts  — the qualitative-artifact path through its entry points, at
+                ``demo``'s own widths (z = 16, B = 128, τ = 2, α = 100,
+                β = 1/8, Adam 5e-4): ``demo.main --model clearvae --dataset
+                styled --epochs 31 --n_total 20000``, the notebook's depth
+                (4,092 graphed steps), then bvae, gvae, mlvae, cleartcvae and
+                clearmimvae on styled and clearvae on colored and celeba, 1
+                epoch of 4,096 images each: finite gMIG, MSE and grids, the
+                swapping, interpolation and (where sklearn and matplotlib
+                are installed) t-SNE files written, K3 once a chunk of each
+                styled half (none on the sets that come styled), no
+                fused-loss kernel (demo's trainers are unfused). The
+                reference run's swap grid and interpolation strips decoded
+                on the card equal those that the same weights decode on the
+                CPU (max abs 1e-4). A child process that sets nothing itself
+                runs ``demo.main`` (lock skipped by its escape hatch) and
+                must read both ``allow_tf32`` flags False after it; a second
+                child asking for the GPU lock must be refused by the
+                holder's pid. Then ``illustrate.main`` (three grids, K3
+                counted), ``mi_simulation.main --reps 3`` (finite traces;
+                PS-SNN and the kNN MI fall as the std rises) and
+                ``analyze.main`` over phase 4's result JSON.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9 (phases 5 and 7 train on
+phase 3's data; phase 9 reads phase 4's result).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -227,6 +249,21 @@ MIG_TOL = dict(rtol=1e-3, atol=1e-3)   # tests/test_native.py's bars
 SIXTY_FOUR = dict(vae_arch="VAE64", in_channel=3, z_dim=64, beta=1 / 32,
                   vae_lr=3e-5, alpha=100, temperature=0.1, seed=0,
                   hyperparameter={"fused": True}, device="cuda")
+# phase 9: demo.main at its own defaults (z = 16, B = 128, τ = 2, α = 100,
+# β = 1/8, Adam 5e-4): CLEAR on Styled-MNIST at the notebook's depth (31
+# epochs of 17,000 images: 4,092 graphed steps), then the other five models
+# and the other two sets at cut depth
+DEMO_COMMON = ["--seed", "0", "--device", "cuda"]
+DEMO_REF = ["--model", "clearvae", "--dataset", "styled", "--epochs", "31",
+            "--n_total", "20000"]
+DEMO_REF_STEPS = 31 * (17000 // 128)
+DEMO_SHORT = [["--model", m, "--dataset", d, "--epochs", "1", "--n_total",
+               "4096"]
+              for m, d in (("bvae", "styled"), ("gvae", "styled"),
+                           ("mlvae", "styled"), ("cleartcvae", "styled"),
+                           ("clearmimvae", "styled"), ("clearvae", "colored"),
+                           ("clearvae", "celeba"))]
+DECODE_TOL = 1e-4       # the card's decode against the CPU's, same weights
 N64 = 2048              # synthetic CelebA images, the runners' default
 STEPS64 = 12            # steps a turn of bench.time_steps (12·128 ≤ 1,740)
 # each runner: its module, its arguments (depth cut), its result file, and
@@ -1876,6 +1913,225 @@ def phase_sixty_four(gpu, here):
     return total
 
 
+def _demo_run(args, out_dir):
+    """One ``demo.main`` call on the card, its launch counts zeroed just
+    before and read just after, its fit timed; returns (result, seconds,
+    fit seconds, {kernel: launches})."""
+    from clearvae_torch.experiments import demo as DEMO
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.train import trainers as TR
+
+    rec = _Recorder()
+    rec.wrap(TR.TrainerCore, "fit", "fit")
+    FL.reset_launches()
+    K3.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        r = DEMO.main(args + DEMO_COMMON + ["--out", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    return (r, time.perf_counter() - t0, rec.seconds("fit"),
+            {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"]})
+
+
+def _check_demo(tag, args, r, launches, out_dir, missing):
+    """Finite gMIG, MSE and grids, the artifact files written, no fused-loss
+    kernel launched (demo's trainers are unfused), and K3 exactly once a
+    chunk of the styled train and validation halves (none on the other
+    sets, which come styled)."""
+    from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES
+
+    model = args[args.index("--model") + 1]
+    dataset = args[args.index("--dataset") + 1]
+    n_total = int(args[args.index("--n_total") + 1])
+    if not (math.isfinite(r["mig"]) and math.isfinite(r["mse"])):
+        fail(f"{tag}: gMIG {r['mig']}, MSE {r['mse']}")
+    for g in (r["swap"], *r["interp"]):
+        if not (np.isfinite(g).all() and 0 <= g.min() and g.max() <= 1):
+            fail(f"{tag}: a grid is not finite or leaves [0, 1]")
+    names = ["swapping", "interp-style", "interp-content"]
+    if not missing:
+        names += ["tsne-muc-by-class", "tsne-muc-by-style",
+                  "tsne-mus-by-style", "tsne-mus-by-class"]
+    for name in names:
+        path = os.path.join(out_dir, f"{model}-{name}.png")
+        if not os.path.isfile(path) or os.path.getsize(path) == 0:
+            fail(f"{tag}: {path} was not written")
+    n_train = int(0.85 * n_total)
+    want = 0 if dataset != "styled" else sum(
+        k3_launches_expected(EXPERIMENT_STYLES, chunk_batches(n, 512))
+        for n in (n_train, n_total - n_train))
+    if launches["style_batch"] != want:
+        fail(f"{tag}: K3 launched {launches['style_batch']} times; the "
+             f"chunks of its styled halves make {want}")
+    fused = {k: v for k, v in launches.items() if k != "style_batch" and v}
+    if fused:
+        fail(f"{tag}: the unfused trainer launched {fused}")
+
+
+def _child_precision(here, out_dir):
+    """``demo.main`` in a child process that sets nothing itself (the lock
+    skipped by its escape hatch: this process holds it); returns the two
+    TF32 flags before and after ``main``."""
+    code = (
+        "import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+        "from clearvae_torch.experiments import demo; "
+        "flags = lambda: [torch.backends.cudnn.allow_tf32, "
+        "torch.backends.cuda.matmul.allow_tf32]; before = flags(); "
+        "demo.main(['--n_total', '1024', '--epochs', '1', '--device', "
+        "'cuda', '--out', sys.argv[2]]); "
+        "print(json.dumps({'before': before, 'after': flags()}))")
+    env = {**os.environ, "CLEARVAE_TORCH_NO_LOCK": "1"}
+    r = subprocess.run([sys.executable, "-c", code, here, out_dir], env=env,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"the child demo run failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _child_lock(here):
+    """A child process that asks for the GPU lock without the escape hatch:
+    (exit code, its stderr)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from clearvae_torch.utils.lock import acquire_gpu_lock; "
+            "acquire_gpu_lock(); print('acquired')")
+    env = {k: v for k, v in os.environ.items() if k != "CLEARVAE_TORCH_NO_LOCK"}
+    r = subprocess.run([sys.executable, "-c", code, here], env=env,
+                       capture_output=True, text=True, timeout=120)
+    return r.returncode, r.stderr.strip()
+
+
+def phase_artifacts(gpu, here):
+    """The qualitative-artifact path on the card (see the module
+    docstring); returns {kernel: launches} summed over its in-process runs,
+    each counted from zero just before it and read just after."""
+    import copy
+    import shutil
+
+    from clearvae_torch.experiments import analyze as ANALYZE
+    from clearvae_torch.experiments import illustrate as ILLUSTRATE
+    from clearvae_torch.experiments import mi_simulation as MISIM
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.utils import lock as LOCK
+    from clearvae_torch.utils import visual as V
+
+    t_phase = time.perf_counter()
+    out_root = os.path.join(here, ".runs", "chip_smoke_artifacts")
+    shutil.rmtree(out_root, ignore_errors=True)
+    total = {k: 0 for k in (*REPLACES, "style_batch")}
+    missing = V.missing_packages("sklearn", "matplotlib")
+    if "sklearn" in missing:
+        print("[artifacts] tsne_plot not run: sklearn is not installed on "
+              "this machine")
+    if "matplotlib" in missing:
+        print("[artifacts] matplotlib is not installed on this machine: the "
+              "t-SNE, MI and box plots are not drawn (every grid and trace "
+              "is still computed and checked)")
+
+    # 1. demo at the reference depth, then the other models and sets
+    for i, args in enumerate([DEMO_REF] + DEMO_SHORT):
+        tag = "[artifacts] demo " + " ".join(args)
+        out = os.path.join(out_root, f"demo{i}")
+        r, secs, fit_s, launches = _demo_run(args, out)
+        _check_demo(tag, args, r, launches, out, missing)
+        for k in total:
+            total[k] += launches[k]
+        t = r["trainer"]
+        steps = t.train_step.step
+        print(f"{tag}: {secs:.2f} s, fit {fit_s:.2f} s ({steps} graphed "
+              f"steps, {steps * 128 / fit_s:.1f} images/sec with its "
+              f"validations), gMIG {r['mig']:.4f}, MSE {r['mse']:.3f}, K3 "
+              f"{launches['style_batch']}; {gpu}")
+        if i == 0:
+            if steps != DEMO_REF_STEPS:
+                fail(f"{tag}: {steps} train steps, not {DEMO_REF_STEPS}")
+            # the decode holds on the card: the same weights on the CPU
+            cpu = V.make_decode_fn(copy.deepcopy(t.model).cpu())
+            zh = r["z"].shape[1] // 2
+            z, sel = r["z"].cpu(), r["sel"]
+            swap = V.feature_swapping_plot(z[sel, :zh], z[sel, zh:],
+                                           r["x"][sel], cpu)
+            interp = V.interpolation_plot(r["x"], z, cpu, z_dim=zh,
+                                          sample_size=8)
+            errs = [float(np.abs(a - b).max()) for a, b in
+                    zip((r["swap"], *r["interp"]), (swap, *interp))]
+            if max(errs) > DECODE_TOL:
+                fail(f"{tag}: card decode vs CPU decode max abs "
+                     f"{max(errs)} (swap, style, content: {errs})")
+            print(f"[artifacts] card decode == CPU decode of the same "
+                  f"weights: max abs {errs[0]:.3g} (swap grid), "
+                  f"{errs[1]:.3g} / {errs[2]:.3g} (interpolation strips; "
+                  f"bar {DECODE_TOL})")
+
+    # 2. fp32 in a clean child; the lock refuses a second holder
+    t0 = time.perf_counter()
+    flags = _child_precision(here, os.path.join(out_root, "child"))
+    if flags["after"] != [False, False]:
+        fail(f"a runner left TF32 on in a clean child process: {flags}")
+    print(f"[artifacts] clean child ({time.perf_counter() - t0:.2f} s): "
+          f"(cudnn, matmul) allow_tf32 {flags['before']} before demo.main, "
+          f"{flags['after']} after")
+    if not LOCK.acquire_gpu_lock():         # held since main's start
+        fail("this process does not hold the GPU lock")
+    t0 = time.perf_counter()
+    code, err = _child_lock(here)
+    if code == 0 or f"'pid': {os.getpid()}" not in err:
+        fail(f"a second lock holder was not refused by name: exit {code}, "
+             f"{err[-500:]}")
+    print(f"[artifacts] second lock holder refused (exit {code}, "
+          f"{time.perf_counter() - t0:.2f} s): {err.splitlines()[-1][:160]}")
+
+    # 3. illustrate: its three grids styled on the card
+    FL.reset_launches()
+    K3.reset_launches()
+    t0 = time.perf_counter()
+    grids = ILLUSTRATE.main(["--device", "cuda", "--seed", "0", "--out",
+                             os.path.join(out_root, "illustrate")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k3 = K3.LAUNCHES["style"]
+    total["style_batch"] += k3
+    if k3 == 0 or any(FL.LAUNCHES.values()):
+        fail(f"illustrate launched K3 {k3} times, fused losses {FL.LAUNCHES}")
+    for name, g in grids.items():
+        if not (np.isfinite(g).all() and 0 <= g.min() and g.max() <= 1):
+            fail(f"illustrate's {name} grid is not finite or leaves [0, 1]")
+    print(f"[artifacts] illustrate: {secs:.2f} s, grids "
+          f"{ {k: g.shape for k, g in grids.items()} }, K3 {k3}")
+
+    # 4. the MI simulation
+    t0 = time.perf_counter()
+    ps, snn = MISIM.main(["--reps", "3", "--device", "cuda", "--out",
+                          os.path.join(out_root, "mi-sim")])
+    secs = time.perf_counter() - t0
+    if not all(np.isfinite(v).all() for v in (*ps.values(), *snn.values())):
+        fail("a trace of the MI simulation is not finite")
+    falls = {}
+    for k, v in ps.items():     # std 1 → 4, three reps a std
+        v = np.asarray(v).reshape(-1, 3).mean(1)
+        falls[k] = (float(v[0]), float(v[-1]))
+        if not v[0] > v[-1]:
+            fail(f"PS-SNN sweep: {k} does not fall with the std: {v}")
+    print(f"[artifacts] mi_simulation --reps 3: {secs:.2f} s; PS-SNN sweep, "
+          f"mean at std 1 -> 4: "
+          + ", ".join(f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in falls.items()))
+
+    # 5. analyze over phase 4's result JSON
+    res_dir = os.path.join(here, ".runs", "chip_smoke_downstream")
+    df, rel = ANALYZE.main(["--result_dir", res_dir, "--markdown", "--paired",
+                            "--out", os.path.join(out_root, "analyze")])
+    if len(df) != len(ZOO) or len(rel) != len(ZOO) or not np.isfinite(
+            rel[["rel_acc", "rel_map", "rel_mauc"]].to_numpy()).all():
+        fail(f"analyze: {len(df)} rows, relative frame {rel}")
+    print(f"[artifacts] analyze: {len(df)} rows of phase 4's JSON")
+    print(f"[artifacts] whole phase {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {total}")
+    return total
+
+
 def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
@@ -2005,8 +2261,10 @@ def main():
             here, "clearvae_torch"):
         fail(f"clearvae_torch was imported from {clearvae_torch.__file__}, "
              f"not from beside this script")
-    torch.backends.cudnn.allow_tf32 = False       # fp32 convolutions, as the
-    torch.backends.cuda.matmul.allow_tf32 = False  # JAX reference computes
+    # the runners' set-up: the single-GPU-process lock, and fp32 matmuls and
+    # convolutions (TF32 off), as the JAX reference computes
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     gpu = gpu_name_and_limit()
     phase_build()
     errs, times = phase_kernels()
@@ -2017,9 +2275,11 @@ def main():
     down = phase_downstream(gpu, here)
     mig = phase_mig(gpu, here)
     s64 = phase_sixty_four(gpu, here)
+    art = phase_artifacts(gpu, here)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
                       "graph": graph[name], "downstream": down[name],
-                      "mig": mig[name], "sixty-four": s64[name]}
+                      "mig": mig[name], "sixty-four": s64[name],
+                      "artifacts": art[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
@@ -2034,6 +2294,9 @@ def main():
     for name in REPLACES:
         if by_path[name]["sixty-four"] == 0:
             fail(f"{name} was launched no time on the sixty-four path")
+    # the qualitative-artifact path styles its data through K3
+    if by_path["style_batch"]["artifacts"] == 0:
+        fail("style_batch was launched no time on the artifacts path")
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=by_path[name][own[name]],
                     max_abs_err=errs[name], **times[(name, 128, 8)],
@@ -2045,7 +2308,7 @@ def main():
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path=by_path["style_batch"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
-          f"(phases 1-8, the build included)")
+          f"(phases 1-9, the build included)")
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048, 8)] for n in REPLACES},

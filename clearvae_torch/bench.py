@@ -283,12 +283,12 @@ def main(argv=None):
     from clearvae_torch import resolve_device
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist
+    from clearvae_torch.utils.cache import enable_compilation_cache
 
+    enable_compilation_cache()  # the card to itself, and fp32: TF32 off
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise SystemExit("clearvae_torch.bench measures a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     ds = make_styled_mnist(*synthetic_mnist(args.steps * BATCH, seed=0),
                            seed=0)
     ds.materialize(dev)

@@ -6,17 +6,20 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
+
 import numpy as np
 
-from clearvae_torch.data.styled import generate_style_dict
+from clearvae_torch.data.styled import batch_indices, generate_style_dict
 
 
 @dataclasses.dataclass
 class ArrayDataset:
     """Images already in final form: [N, H, W, C] float32 in [0, 1],
     content labels and style labels. The trainers keep ``images`` and
-    ``labels`` resident on their device and gather batches by index (the
-    JAX package's host-side ``batches`` iterator has no caller here)."""
+    ``labels`` resident on their device and gather batches by index;
+    ``batches`` is the JAX package's host iterator, which the qualitative
+    runners and ``encode_dataset`` read, with StyledDataset's interface."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -28,6 +31,18 @@ class ArrayDataset:
     def subset(self, sel) -> "ArrayDataset":
         return ArrayDataset(self.images[sel], self.labels[sel],
                             self.style_idx[sel])
+
+    def batches(self, batch_size: int, *, shuffle: bool, seed: int = 0,
+                drop_last: bool | None = None,
+                include_style: bool = True) -> Iterator[tuple]:
+        """Yield (x, label, style) numpy batches in ``batch_indices``'
+        order."""
+        for sel in batch_indices(len(self), batch_size, shuffle, seed,
+                                 drop_last):
+            if include_style:
+                yield self.images[sel], self.labels[sel], self.style_idx[sel]
+            else:
+                yield self.images[sel], self.labels[sel]
 
 
 def kstyle_train_test_split(ds: ArrayDataset, classes, styles, k: int,

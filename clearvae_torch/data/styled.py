@@ -14,14 +14,31 @@ run_styledmnist_downstream_expr.py:80).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
+from clearvae_torch import resolve_device
 from clearvae_torch.ops.corruptions import (EXPERIMENT_STYLES, style_batch,
                                             zigzag_draws)
+
+
+def batch_indices(n: int, batch_size: int, shuffle: bool, seed: int = 0,
+                  drop_last: bool | None = None) -> Iterator[np.ndarray]:
+    """The index arrays of the host ``batches`` iterators
+    (``clearvae_tpu/data/styled.py:132-155``, ``data/common.py:32-49``): in
+    order, or shuffled by ``RandomState(seed)``; ``drop_last`` (default
+    ``shuffle``) drops the ragged tail."""
+    if drop_last is None:
+        drop_last = shuffle
+    idx = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(idx)
+    stop = (n // batch_size) * batch_size if drop_last else n
+    for s in range(0, stop, batch_size):
+        yield idx[s:s + batch_size]
 
 
 def random_style_distribution(styles: Sequence[str], seed: int | None = None) -> dict:
@@ -111,6 +128,23 @@ class StyledDataset:
             self._cache[key] = self.chunked_apply(self.style, device,
                                                    device_batch)
         return self._cache[key]
+
+    def batches(self, batch_size: int, *, shuffle: bool, seed: int = 0,
+                drop_last: bool | None = None, include_style: bool = True,
+                device=None) -> Iterator[tuple]:
+        """Yield (x [B, H, W, 1] float32 in [0, 1], label [B], style [B])
+        numpy batches of the styled dataset, in ``batch_indices``' order:
+        styled once on ``device`` (``cuda`` unless given; K3 on a card) by
+        ``materialize``, whose cache later calls reuse, and copied to the
+        host once a call."""
+        styled = self.materialize(resolve_device(device)).cpu().numpy()
+        for sel in batch_indices(len(self), batch_size, shuffle, seed,
+                                 drop_last):
+            x = styled[sel][..., None]
+            if include_style:
+                yield x, self.labels[sel], self.style_idx[sel]
+            else:
+                yield x, self.labels[sel]
 
 
 def make_styled_mnist(images: np.ndarray, labels: np.ndarray,

@@ -57,6 +57,8 @@ def get_args(argv=None):
 
 
 def main(argv=None):
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()  # the GPU lock, and fp32: TF32 off
     args = get_args(argv)
     device = resolve_device(args.device)
     seed = args.seed if args.seed is not None else int(np.random.randint(0, 1000))

@@ -13,9 +13,9 @@ Usage:
       [--models clear ...] [--perf_mode] [--device cuda|cpu] [--out DIR]
 
 Without --data_root_path (or when the archive is absent) the synthetic
-64×64 stand-in of ``data/synth64.py`` is used. The JAX runner's device lock
-and compilation cache have no counterpart in the port yet (ROADMAP item
-18), so ``main`` makes neither call.
+64×64 stand-in of ``data/synth64.py`` is used. ``main`` first takes the
+single-GPU-process lock and sets fp32 numerics (``utils/lock.py``,
+``utils/cache.py``), as the JAX runner takes its lock and cache.
 """
 
 from __future__ import annotations
@@ -64,6 +64,8 @@ def get_args(argv=None):
 
 
 def main(argv=None):
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()  # the GPU lock, and fp32: TF32 off
     args = get_args(argv)
     device = resolve_device(args.device)
     seed = args.seed if args.seed is not None else int(np.random.randint(0, 1000))

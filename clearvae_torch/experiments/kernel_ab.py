@@ -167,6 +167,9 @@ def measure(root: str, save: str | None = None) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
+    # fp32, as the trainers run, set here: a root may predate utils/cache.py
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build(_build.sources())
     out = dict(root=root, package=os.path.dirname(clearvae_torch.__file__),
@@ -209,8 +212,6 @@ def measure(root: str, save: str | None = None) -> dict:
         walls.append((time.perf_counter() - t1) * 1e3)
     rec.update(syncs=_syncs(styling), wall_ms=float(np.median(walls)))
     out["styling B=128"] = rec
-    torch.backends.cudnn.allow_tf32 = False       # as chip_smoke.py runs
-    torch.backends.cuda.matmul.allow_tf32 = False  # the trainers
     out.update(measure_steps())
     if save:
         torch.save(k3_outputs(K3, torch), save)
@@ -250,12 +251,19 @@ def main(argv=None):
     if args.one:
         print(json.dumps(measure(args.root[0], args.one)), flush=True)
         return
+    # this checkout's GPU lock, held for every root's turn: the roots run
+    # in children, which take the escape hatch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", ".."))
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
+    env = {**os.environ, "CLEARVAE_TORCH_NO_LOCK": "1"}
     os.makedirs(args.out, exist_ok=True)
     paths = [os.path.join(args.out, f"k3_root{i}.pt")
              for i in range(len(args.root))]
     for root, path in zip(args.root, paths):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        path, "--root", root], check=True)
+                        path, "--root", root], check=True, env=env)
     print(json.dumps(compare(paths)), flush=True)
 
 

@@ -18,9 +18,9 @@ Usage:
 
 Without --data_root_path (or when the MNIST idx files are absent) the
 synthetic digits are used. The zoo's latent losses are unfused, as in the
-JAX zoo. The JAX runner's single-process device lock and compilation cache
-(``acquire_tpu_lock``, ``enable_compilation_cache``) have no counterpart in
-the port yet (ROADMAP item 18), so ``main`` makes neither call.
+JAX zoo. ``main`` first takes the single-GPU-process lock and
+sets fp32 numerics (``utils/lock.py``, ``utils/cache.py``), as the JAX
+runner takes its lock and cache.
 """
 
 from __future__ import annotations
@@ -121,6 +121,8 @@ def sweep_path(args) -> str:
 
 
 def main(argv=None):
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()  # the GPU lock, and fp32: TF32 off
     args = get_args(argv)
     args.device = resolve_device(args.device)
     train, valid, test = get_data(args)

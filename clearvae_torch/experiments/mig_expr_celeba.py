@@ -105,6 +105,8 @@ def sweep_path(args) -> str:
 
 
 def main(argv=None):
+    from clearvae_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()  # the GPU lock, and fp32: TF32 off
     args = get_args(argv)
     args.device = resolve_device(args.device)
     train, valid, test = get_data(args)

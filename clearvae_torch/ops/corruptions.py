@@ -172,6 +172,28 @@ def canny_edges(x, severity=None, sigma: float = 1.0, low_threshold: float = 0.1
 STYLE_FNS = {"zigzag": zigzag, "canny_edges": canny_edges}
 
 
+# ---------------------------------------------------------------------------
+# Colored-MNIST (reference corruptions.py:725-742)
+# ---------------------------------------------------------------------------
+
+COLOR_DICT = {
+    "red": [0], "green": [1], "blue": [2], "yellow": [0, 1],
+    "cyan": [1, 2], "magenta": [0, 2], "white": [0, 1, 2],
+}
+
+
+def rgb_change(x, color: str) -> torch.Tensor:
+    """A grayscale [..., H, W] image (or batch) in 0..255 tinted into
+    ``color``: [..., H, W, 3] in 0..255, the channels of ``COLOR_DICT``
+    carrying the image and the others zero (``clearvae_tpu/ops/
+    corruptions.py:640-645``, one image there)."""
+    x = torch.as_tensor(x, dtype=torch.float32) / 255.0
+    rgb = torch.zeros((*x.shape, 3), dtype=torch.float32, device=x.device)
+    for ch in COLOR_DICT[color]:
+        rgb[..., ch] = x
+    return rgb * 255.0
+
+
 def k3_groups(styles=EXPERIMENT_STYLES) -> dict:
     """{severity: [K3 code of each style index, -1 outside the group]} for
     the styles K3 expresses. A severity-dependent style joins the group of

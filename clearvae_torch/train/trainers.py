@@ -35,6 +35,7 @@ from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
 from clearvae_torch.train import steps as S
+from clearvae_torch.utils.cache import enable_compilation_cache
 
 
 def adam(lr: float, device):
@@ -218,7 +219,13 @@ class TrainerCore:
         absolute sample id): the same pixels as the materialized path,
         inside the graph with ``use_scan``. In-fit validation then styles
         its batches the same way. Returns ``_fit_result()``: None here,
-        the loss histories in CLEAR-TC and CLEAR-MIM."""
+        the loss histories in CLEAR-TC and CLEAR-MIM.
+
+        It first takes the GPU lock and turns TF32 off
+        (``utils.cache.enable_compilation_cache``), as JAX's ``fit`` takes
+        its lock: a library user trains alone on the card and gets the
+        reference's fp32 numerics, runner or not."""
+        enable_compilation_cache()
         if use_scan:
             if scan_unroll < 0:
                 raise ValueError("`unroll` must be a `bool` or a "
@@ -403,6 +410,26 @@ class VAETrainerBase(TrainerCore):
                                  backend=self.mig_backend)
         return mig, self.last_eval_totals["recon"]
 
+    @torch.no_grad()
+    def encode_dataset(self, ds, batch_size: int = 128, what: str = "mu_c"):
+        """Encode a dataset with the frozen model in eval mode, batch by
+        batch of ``ds.batches(shuffle=False)`` (a StyledDataset styled on
+        this trainer's device); returns numpy (features, labels, styles),
+        ``what`` one of mu_c, logvar_c, mu_s, logvar_s
+        (``clearvae_tpu/train/trainers.py:402-417``)."""
+        head = {"mu_c": 0, "logvar_c": 1, "mu_s": 2, "logvar_s": 3}[what]
+        kw = {"device": self.device} if hasattr(ds, "materialize") else {}
+        feats, labels, styles = [], [], []
+        for batch in ds.batches(batch_size, shuffle=False, **kw):
+            x = torch.as_tensor(batch[0], dtype=torch.float32,
+                                device=self.device)
+            feats.append(self.model.encode(x, train=False)[head].cpu().numpy())
+            labels.append(np.asarray(batch[1]))
+            if len(batch) > 2:
+                styles.append(np.asarray(batch[2]))
+        return (np.concatenate(feats), np.concatenate(labels),
+                np.concatenate(styles) if styles else None)
+
 
 def _anneal_cfg(hp: dict) -> C.AnnealConfig:
     return C.AnnealConfig(beta=hp["beta"], loc=hp.get("loc", 0.0),
@@ -447,25 +474,28 @@ class CLEARVAETrainer(VAETrainerBase):
 class HierarchicalVAETrainer(VAETrainerBase):
     """GVAE / ML-VAE (reference HierarchicalVAETrainer, trainer.py:291-412).
     ``evaluate(with_evidence_acc=True)`` evaluates on the batch's group
-    evidence."""
+    evidence; ``eval_evidence_acc`` makes that the default eval step, which
+    in-fit validation and ``evaluate(with_evidence_acc=None)`` use
+    (``clearvae_tpu/train/trainers.py:452-463``)."""
 
     def __init__(self, model, optimizer, hyperparameter: dict,
                  verbose_period: int = 5, seed: int = 0,
-                 mig_backend: str = "auto", device=None):
+                 mig_backend: str = "auto", eval_evidence_acc: bool = False,
+                 device=None):
         super().__init__(model, verbose_period, seed, mig_backend, device)
         self.optimizer = optimizer(self.model.parameters())
         self.train_step = S.make_hierarchical_step(
             self.model, self.optimizer, _anneal_cfg(hyperparameter))
         self._eval_steps = {flag: S.make_hierarchical_eval_step(self.model, flag)
                             for flag in (False, True)}
-        self.eval_step = self._eval_steps[False]
+        self.eval_step = self._eval_steps[eval_evidence_acc]
 
     def evaluate(self, ds, batch_size: int = 128,
                  with_evidence_acc: bool | None = None,
                  style_on_device: bool = False, use_scan: bool = True):
         """(reference evaluate(..., with_evidence_acc), trainer.py:366-412).
-        ``None`` keeps the trainer's eval step, plain by default; each eval
-        step has its own graph."""
+        ``None`` keeps the trainer's eval step, which ``eval_evidence_acc``
+        chose; each eval step has its own graph."""
         prev = self.eval_step
         if with_evidence_acc is not None:
             self.eval_step = self._eval_steps[with_evidence_acc]
@@ -705,7 +735,9 @@ class DownstreamMLPTrainer:
         ``use_scan`` (default on) replays the probe step captured in a CUDA
         graph (``S.make_graphed_probe_epochs_fn``; its body uncaptured on
         the CPU), the JAX package's one program for all the epochs;
-        ``use_scan=False`` steps eagerly, with the same numbers."""
+        ``use_scan=False`` steps eagerly, with the same numbers. Takes the
+        GPU lock and turns TF32 off first, as the VAE trainers' ``fit``."""
+        enable_compilation_cache()
         if style_on_device and not cache_features:
             raise ValueError("style_on_device probe training requires "
                              "cache_features=True (the cached-feature path "

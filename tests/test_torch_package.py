@@ -36,6 +36,12 @@ import clearvae_torch.experiments.pacs_downstream
 import clearvae_torch.experiments.camelyon17_downstream
 import clearvae_torch.experiments.chexpert_downstream
 import clearvae_torch.experiments.mig_expr_celeba
+import clearvae_torch.utils.lock, clearvae_torch.utils.cache
+import clearvae_torch.data.colored_mnist
+import clearvae_torch.experiments.demo
+import clearvae_torch.experiments.illustrate
+import clearvae_torch.experiments.mi_simulation
+import clearvae_torch.experiments.analyze
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))
