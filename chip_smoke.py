@@ -168,8 +168,26 @@ Phases, each fatal on failure:
                 PS-SNN and the kNN MI fall as the std rises) and
                 ``analyze.main`` over phase 4's result JSON.
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9 (phases 5 and 7 train on
-phase 3's data; phase 9 reads phase 4's result).
+10. corruptions — the whole MNIST-C corruption library on the card. Each of
+                the 32 styles of ``ALL_CORRUPTIONS`` at its default
+                severity styles one B = 128 batch on the card and on the
+                CPU under the same keys, held to the CPU tests' bars
+                (``CORR_BARS``), its device time a call from the profiler.
+                A Styled-MNIST of 12,000 synthetic digits on MNIST-C's 16
+                ``CORRUPTIONS`` (uniform) trains the flagship fused CLEAR
+                trainer (z = 16, B = 128, τ = 0.1, α = 100, β = 1/8) 1
+                epoch through the graphed ``fit`` with ``style_on_device``
+                (every style inside the captured step): K1 once a step each
+                way and K3 twice a step (scale@3 and brightness@5, two
+                severity groups) by replay; the graphed ``evaluate`` styled
+                on the card (K3 and K2f twice a batch, finite MIG and MSE);
+                no Poisson draw cut by its loop cap; 4 graphed steps equal
+                to the eager loop at 0.0 (``cudnn.deterministic``); the
+                fit's captured step replayed and profiled (wall, device
+                busy, idle share, kernels a step, images/sec).
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9, 10 (phases 5 and 7 train
+on phase 3's data; phase 9 reads phase 4's result).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -264,6 +282,21 @@ DEMO_SHORT = [["--model", m, "--dataset", d, "--epochs", "1", "--n_total",
                            ("clearmimvae", "styled"), ("clearvae", "colored"),
                            ("clearvae", "celeba"))]
 DECODE_TOL = 1e-4       # the card's decode against the CPU's, same weights
+# phase 10: MNIST-C's 16 styles (clearvae_tpu/ops/corruptions.py:57-61) at
+# their default severities, uniform, on synthetic digits; the flagship
+# widths of phase 5. CORR_BARS are tests/test_torch_corruptions.py's bars
+# (0..255 scale: atol, and the share of pixels a discrete outcome may move
+# beyond it), which the card's styles are held to against the CPU's
+CORR_N = 12000
+CORR_EPOCHS = 1
+CORR_EAGER_N = 512      # graphed against eager: 4 steps
+CORR_BARS = {"line": (5e-3, 0.0), "dotted_line": (5e-3, 0.0),
+             "zigzag": (5e-3, 0.0), "elastic_transform": (5e-3, 0.0),
+             "pessimal_noise": (5e-3, 0.0), "glass_blur": (1e-3, 0.005),
+             "frost": (1e-3, 0.005), "snow": (1e-3, 0.005),
+             "spatter": (1e-3, 0.005), "jpeg_compression": (1e-3, 0.005),
+             "shot_noise": (1e-3, 0.002)}
+CORR_DEFAULT_BAR = (1e-3, 0.0)
 N64 = 2048              # synthetic CelebA images, the runners' default
 STEPS64 = 12            # steps a turn of bench.time_steps (12·128 ≤ 1,740)
 # each runner: its module, its arguments (depth cut), its result file, and
@@ -2132,6 +2165,216 @@ def phase_artifacts(gpu, here):
     return total
 
 
+def _styles_on_the_card(x_cpu, keys_cpu):
+    """Every style of ``ALL_CORRUPTIONS`` at its default severity on a batch
+    on the card against the same batch and keys on the CPU, at CORR_BARS;
+    returns {name: (device ms of one call and its kernels, from the
+    profiler; max abs and share of pixels beyond the bar against the
+    CPU)}. The checked call is the profiled one (made again, up to 3
+    times, where the profiler recorded none of its kernels): a profiler
+    window costs ~0.9 s here, and one call of every style launches
+    ~31,000 kernels."""
+    from clearvae_torch.bench import profile_window
+    from clearvae_torch.ops import corruptions as TC
+    from clearvae_torch.ops.kernels import style as K3
+
+    x = x_cpu.cuda()
+    keys = tuple(k.cuda() for k in keys_cpu)
+    times, cpu_s = {}, 0.0
+    for name in TC.ALL_CORRUPTIONS:
+        fn = TC.CORRUPTION_FNS[name]
+        # a window of one K3 style's call (two kernels) came back empty
+        # three times running late in the script: those take 50 calls
+        calls = 50 if name in K3.STYLE_CODES else 1
+        for _ in range(3):
+            with profile_window() as prof:
+                for _ in range(calls):
+                    out = fn(x, keys)
+                torch.cuda.synchronize()
+            by_name, counts = _device_kernels(prof, counts=True)
+            names = [k for k in by_name
+                     if not k.startswith(("Memcpy", "Memset"))]
+            if names:
+                break
+        else:
+            fail(f"{name}: the profiler recorded no kernel in 3 windows")
+        got = out.cpu().double()
+        t0 = time.perf_counter()
+        ref = fn(x_cpu, keys_cpu).double()
+        cpu_s += time.perf_counter() - t0
+        atol, share = CORR_BARS.get(name, CORR_DEFAULT_BAR)
+        off = float(((got - ref).abs() > atol).double().mean())
+        if not bool(torch.isfinite(got).all()) or off > share:
+            fail(f"{name} on the card vs the CPU: {off:.5f} of pixels beyond "
+                 f"{atol} (bar {share}), max abs "
+                 f"{float((got - ref).abs().max()):.3e}")
+        times[name] = (sum(by_name[k] for k in names) / 1e3 / calls,
+                       sum(counts[k] for k in names) / calls,
+                       float((got - ref).abs().max()), off)
+    return times, cpu_s
+
+
+def phase_corruptions(gpu):
+    """Phase 10: the MNIST-C corruption library on the card (see the module
+    docstring); returns {kernel: launches} of the styled fused fit and its
+    evaluation, each counted from zero just before it and read just
+    after."""
+    from clearvae_torch.bench import profile_window
+    from clearvae_torch.data.mnist import synthetic_mnist
+    from clearvae_torch.data.styled import (StyledDataset, make_styled_mnist,
+                                            train_valid_split)
+    from clearvae_torch.ops import corruptions as TC
+    from clearvae_torch.ops import prng as P
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import style as K3
+    from clearvae_torch.train.factories import get_clearvae_trainer
+
+    t_phase = time.perf_counter()
+    imgs, labels = synthetic_mnist(CORR_N, seed=0)
+    # (a) each style: a B = 128 batch on the card against the CPU
+    ids = torch.arange(128)
+    keys_cpu = P.fold_in(P.key(0, (128,)), ids)
+    t0 = time.perf_counter()
+    times, cpu_s = _styles_on_the_card(torch.as_tensor(imgs[:128]), keys_cpu)
+    t_styles = time.perf_counter() - t0
+    print(f"[corruptions] {gpu}: all {len(times)} styles at their default "
+          f"severities, B=128, equal to the CPU's within the CPU tests' bars "
+          f"({t_styles:.2f} s, {cpu_s:.2f} s of it the CPU's); device time "
+          f"of one call, from the profiler:")
+    for name, (ms, n_k, err, off) in sorted(times.items(),
+                                            key=lambda kv: -kv[1][0]):
+        print(f"[corruptions]   {name:18s} {ms:9.4f} ms  {n_k:7.0f} kernels  "
+              f"max abs vs CPU {err:.2e}, share beyond bar {off:.5f}")
+
+    # (b) a full-width graphed fit on MNIST-C's 16 styles, uniform
+    styles = tuple((name, None) for name in TC.CORRUPTIONS)
+    ds = make_styled_mnist(imgs, labels, styles=styles, seed=0)
+    train_ds, valid_ds = train_valid_split(ds, seed=0)
+    kw = {**ADV_COMMON, "ps": True}
+    P.unfinished("cuda").zero_()
+    t0 = time.perf_counter()
+    trainer, launches = _graph_fit(get_clearvae_trainer, kw, train_ds,
+                                   CORR_EPOCHS, style_on_device=True)
+    t_fit = time.perf_counter() - t0
+    steps = trainer.train_step.step
+    n_batches = CORR_EPOCHS * (len(train_ds) // 128)
+    want = {"clear_latent_fwdgrad": steps, "clear_latent_bwd": steps,
+            "snn_fwd": 0, "snn_bwd": 0,
+            "style_batch": k3_launches_expected(styles, [range(128)] * steps)}
+    if steps != n_batches or launches != want or want["style_batch"] != 2 * steps:
+        fail(f"MNIST-C styled fit: {steps} updates ({n_batches} batches), "
+             f"launches by replay {launches}, expected {want} (K3 twice a "
+             f"batch: scale@3 and brightness@5)")
+    hist = np.concatenate([h["loss"] for h in trainer.history])
+    if not np.isfinite(hist).all():
+        fail("MNIST-C styled fit: non-finite loss")
+    total = dict(launches)
+    # the fused CLEAR trainer's graphed evaluate, styled on the card
+    FL.reset_launches()
+    K3.reset_launches()
+    t0 = time.perf_counter()
+    mig, mse = trainer.evaluate(valid_ds, batch_size=128, style_on_device=True)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    n_eval = -(-len(valid_ds) // 128)
+    ev = {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"]}
+    if (ev["style_batch"] != 2 * n_eval or ev["snn_fwd"] != 2 * n_eval
+            or not (math.isfinite(mig) and math.isfinite(mse))):
+        fail(f"MNIST-C styled evaluate: launches {ev} for {n_eval} batches "
+             f"(K3 and K2f twice a batch), MIG {mig}, MSE {mse}")
+    for k, v in ev.items():
+        total[k] += v
+    # (e) no Poisson draw of shot_noise was cut by its loop cap
+    P.check_poisson("cuda")
+    unfinished = int(P.unfinished("cuda"))
+    print(f"[corruptions] MNIST-C Styled-MNIST ({len(train_ds)} train, "
+          f"{len(valid_ds)} valid; styles {[n for n, _ in styles]}): graphed "
+          f"fit {steps} updates in {t_fit:.2f} s (warm-up and capture "
+          f"included), loss {hist[0]:.2f} -> {hist[-1]:.2f}; launches by "
+          f"replay {launches}; graphed evaluate {t_eval:.2f} s: MIG "
+          f"{mig:.4f}, MSE {mse:.3f}, launches {ev}; Poisson draws cut by "
+          f"their cap: {unfinished}")
+
+    # (d) a few graphed steps against the eager loop, bit for bit
+    t0 = time.perf_counter()
+    n = CORR_EAGER_N
+    sub = StyledDataset(train_ds.images[:n], train_ds.labels[:n],
+                        train_ds.style_idx[:n], styles, train_ds.seed,
+                        train_ds.sample_ids[:n])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, le = _graph_fit(get_clearvae_trainer, kw, sub, 1,
+                               use_scan=False, style_on_device=True)
+        graphed, lg = _graph_fit(get_clearvae_trainer, kw, sub, 1,
+                                 use_scan=True, style_on_device=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    diff = _same_training("MNIST-C styled fit graphed vs eager", eager, graphed)
+    if le != lg or graphed.train_step.step != n // 128:
+        fail(f"MNIST-C styled fit: launches eager {le}, graphed {lg}")
+    print(f"[corruptions] {n // 128} graphed steps == eager: histories and "
+          f"state equal, max abs diff {diff:.1e} (cudnn.deterministic); "
+          f"launches {lg}; {time.perf_counter() - t0:.2f} s")
+
+    # (f) the styled step's device time and images/sec: replays of the
+    # fit's own captured step
+    # (two profiled replays: the profiler's cost grows with their ~23,000
+    # kernels a step)
+    ep = trainer._graphs[(id(train_ds), 128, True)][1]
+    rows = torch.as_tensor(np.random.RandomState(1).permutation(len(train_ds))
+                           [:10 * 128].reshape(10, 128), device="cuda")
+    ep.run(rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep.run(rows)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / len(rows)
+    with profile_window() as prof:
+        ep.run(rows[:2])
+        torch.cuda.synchronize()
+    by_name, n_kernels = _device_kernels(prof)
+    if not by_name:
+        fail("the profiler recorded no device activity")
+    busy = sum(by_name.values()) / 1e3 / 2
+    style_sum = sum(ms for name, (ms, *_) in times.items()
+                    if name in dict(styles))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[corruptions] {gpu}: graphed MNIST-C styled train step (B=128, "
+          f"z=16): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {n_kernels / 2:.0f} kernels/step, "
+          f"{128e3 / wall:.0f} images/s; the 16 styles' eager calls sum to "
+          f"{style_sum:.3f} device ms; top kernels (ms a step):")
+    for name, us in top:
+        print(f"[corruptions]   {us / 1e3 / 2:.4f}  {name[:90]}")
+    # (e) the counter that (b) read is the one the draws write: poisson's
+    # loop sized for rates below the ones drawn cuts draws on the card, and
+    # check_poisson and a fit must then raise
+    cut_keys = (keys_cpu[0][:8].cuda(), keys_cpu[1][:8].cuda())
+    P.poisson(cut_keys, torch.full((8, 28, 28), 9.5, device="cuda"), 0.0)
+    planted = int(P.unfinished("cuda"))
+    raised = []
+    for what, call in (
+            ("check_poisson", lambda: P.check_poisson("cuda")),
+            ("fit", lambda: eager.fit(1, sub, batch_size=128, use_scan=False,
+                                      style_on_device=True))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "did not finish" in str(e):
+                raised.append(what)
+    P.unfinished("cuda").zero_()
+    P.check_poisson("cuda")
+    if planted < 0.2 * 8 * 28 * 28 or raised != ["check_poisson", "fit"]:
+        fail(f"Poisson cap: {planted} draws cut on the card, raised in "
+             f"{raised} (check_poisson and fit must raise)")
+    print(f"[corruptions] Poisson cap: {planted} draws cut on the card by a "
+          f"10-turn loop; check_poisson('cuda') and fit raised")
+    t_all = time.perf_counter() - t_phase
+    print(f"[corruptions] whole phase {t_all:.2f} s; launches {total}")
+    return total
+
+
 def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
@@ -2230,19 +2473,19 @@ def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
           f"({k3 / busy['styled step']:.4f} of it)")
     print(f"[profile]   step alone: wall {walls['step']:.3f} ms, device "
           f"{busy['step']:.4f} ms")
-    # the set-up cost of the dataset's zigzag draws: one threefry pass over
-    # all its sample ids (made once in device_arrays; batches gather)
-    from clearvae_torch.ops.corruptions import zigzag_draws
+    # the set-up cost of the dataset's draws: one threefry pass over all its
+    # sample ids (made once in device_arrays; batches gather)
+    from clearvae_torch.ops.corruptions import style_draws
 
     ids = torch.as_tensor(ds.sample_ids, dtype=torch.int64, device=dev)
     draw_ms = []
     for _ in range(2):                                  # second: warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        zigzag_draws(ds.seed, ids)
+        style_draws(ds.seed, ids)
         torch.cuda.synchronize()
         draw_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"[profile]   zigzag draws of all {len(ids)} sample ids, once per "
+    print(f"[profile]   style draws of all {len(ids)} sample ids, once per "
           f"dataset: {draw_ms[0]:.3f}/{draw_ms[1]:.3f} ms wall (first/second)")
     for name, us in top:
         print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
@@ -2276,10 +2519,11 @@ def main():
     mig = phase_mig(gpu, here)
     s64 = phase_sixty_four(gpu, here)
     art = phase_artifacts(gpu, here)
+    corr = phase_corruptions(gpu)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
                       "graph": graph[name], "downstream": down[name],
                       "mig": mig[name], "sixty-four": s64[name],
-                      "artifacts": art[name]}
+                      "artifacts": art[name], "corruptions": corr[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
@@ -2297,6 +2541,12 @@ def main():
     # the qualitative-artifact path styles its data through K3
     if by_path["style_batch"]["artifacts"] == 0:
         fail("style_batch was launched no time on the artifacts path")
+    # this slice's path, the MNIST-C styled fit, runs K1 both ways, K3 and
+    # (in its evaluation) K2f
+    for name in ("clear_latent_fwdgrad", "clear_latent_bwd", "snn_fwd",
+                 "style_batch"):
+        if by_path[name]["corruptions"] == 0:
+            fail(f"{name} was launched no time on the corruptions path")
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=by_path[name][own[name]],
                     max_abs_err=errs[name], **times[(name, 128, 8)],
@@ -2308,7 +2558,7 @@ def main():
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path=by_path["style_batch"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
-          f"(phases 1-9, the build included)")
+          f"(phases 1-10, the build included)")
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048, 8)] for n in REPLACES},

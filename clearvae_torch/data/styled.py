@@ -21,8 +21,9 @@ import torch
 from torch.nn import functional as F
 
 from clearvae_torch import resolve_device
+from clearvae_torch.ops import prng as P
 from clearvae_torch.ops.corruptions import (EXPERIMENT_STYLES, style_batch,
-                                            zigzag_draws)
+                                            style_draws)
 
 
 def batch_indices(n: int, batch_size: int, shuffle: bool, seed: int = 0,
@@ -83,11 +84,13 @@ class StyledDataset:
         return len(self.labels)
 
     def device_arrays(self, device):
-        """(raw images [N, H, W] float32 0..255, style_idx int64, zigzag
-        draws [N, 2] int64) on ``device``, made there once: what per-batch
-        styling gathers from, with no styled copy resident. The draws are
-        keyed by (seed, absolute sample id), one threefry pass over the
-        dataset's ids."""
+        """(raw images [N, H, W] float32 0..255, style_idx int64, draws
+        [N, 4] int64) on ``device``, made there once: what per-batch
+        styling gathers from, with no styled copy resident. The draws
+        (``style_draws``) are each sample's key fold_in(key(seed), absolute
+        sample id) and zigzag's two draws from it, one threefry pass over
+        the dataset's ids; the other random styles draw from the key inside
+        the styling call."""
         key = ("raw", str(torch.device(device)))
         if key not in self._cache:
             ids = torch.as_tensor(self.sample_ids, dtype=torch.int64,
@@ -95,7 +98,7 @@ class StyledDataset:
             self._cache[key] = (
                 torch.as_tensor(self.images, dtype=torch.float32, device=device),
                 torch.as_tensor(self.style_idx, dtype=torch.int64, device=device),
-                torch.stack(zigzag_draws(self.seed, ids), 1))
+                style_draws(self.seed, ids))
         return self._cache[key]
 
     def style(self, raw: torch.Tensor, style_idx: torch.Tensor,
@@ -106,7 +109,8 @@ class StyledDataset:
 
     def chunked_apply(self, fn, device, device_batch: int = 512) -> torch.Tensor:
         """Run ``fn(raw, style_idx, draws)`` over the dataset in fixed-size
-        chunks on ``device``, the last one zero-padded (style 0, draws 0),
+        chunks on ``device``, the last one zero-padded (style 0, draws 0:
+        the padded rows are dropped, and no row depends on another),
         and concatenate the unpadded results there. The chunk protocol of
         ``materialize`` and the probe's fused style→encode pass
         (``clearvae_tpu/data/styled.py:101-118``)."""
@@ -122,11 +126,14 @@ class StyledDataset:
 
     def materialize(self, device, device_batch: int = 512) -> torch.Tensor:
         """The styled dataset, [N, H, W] float32 in [0, 1] on ``device``,
-        styled there in chunks once and cached per device."""
+        styled there in chunks once and cached per device. Raises if a
+        Poisson draw of shot_noise was cut by its loop cap
+        (``prng.check_poisson``)."""
         key = ("styled", str(torch.device(device)))
         if key not in self._cache:
             self._cache[key] = self.chunked_apply(self.style, device,
                                                    device_batch)
+            P.check_poisson(device)
         return self._cache[key]
 
     def batches(self, batch_size: int, *, shuffle: bool, seed: int = 0,

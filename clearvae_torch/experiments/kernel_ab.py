@@ -197,7 +197,9 @@ def measure(root: str, save: str | None = None) -> dict:
     sidx = torch.as_tensor(np.arange(b) % len(TC.EXPERIMENT_STYLES),
                            dtype=torch.int64, device=dev)
     ids = torch.arange(b, dtype=torch.int64, device=dev)
-    draws = torch.stack(TC.zigzag_draws(0, ids), 1)
+    # a tree from before the keyed styles takes zigzag's two draws alone
+    draws = (TC.style_draws(0, ids) if hasattr(TC, "style_draws")
+             else torch.stack(TC.zigzag_draws(0, ids), 1))
 
     def styling():
         return TC.style_batch(x, sidx, draws)

@@ -1,5 +1,7 @@
 """ctypes bindings of the port's host library, ``csrc/host_ops.cpp``
-(counterpart of ``clearvae_tpu/native/bindings.py``).
+(counterpart of ``clearvae_tpu/native/bindings.py``): the KSG mutual
+information of MIG, and ``corrupt_batch``, K3's seven deterministic styles
+on the host.
 
 The library is compiled with ``g++ -O3 -std=c++17 -shared -fPIC`` at first
 use into ``clearvae_torch/_build/`` (listed in ``.gitignore``), under a file
@@ -23,6 +25,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "csrc", "host_ops.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# style codes understood by corrupt_batch (host_ops.cpp); K3's codes
+NATIVE_STYLES = {"identity": 0, "stripe": 1, "brightness": 2, "inverse": 3,
+                 "quantize": 4, "contrast": 5, "scale": 6}
 
 _lib = None
 _tried = False
@@ -62,6 +67,10 @@ def _load():
                 ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_double)]
+            lib.corrupt_batch.restype = ctypes.c_int
+            lib.corrupt_batch.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32]
             _lib = lib
     return _lib
 
@@ -91,4 +100,26 @@ def ksg_mi_cd_native(x: np.ndarray, y: np.ndarray,
                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
     if rc != 0:
         raise RuntimeError(f"ksg_mi_cd failed: rc={rc}")
+    return out
+
+
+def corrupt_batch_native(images: np.ndarray, style_names: list[str],
+                         style_idx: np.ndarray,
+                         severity: int = 5) -> np.ndarray:
+    """K3's deterministic styles of a [B, H, W] float32 0..255 batch on the
+    host, into a copy: image i takes ``style_names[style_idx[i]]``, each a
+    name of ``NATIVE_STYLES`` (else KeyError), all at one severity. Raises
+    if the library is not built."""
+    codes = np.asarray([NATIVE_STYLES[style_names[i]] for i in style_idx],
+                       np.int32)
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native host_ops library is not built")
+    out = np.ascontiguousarray(images, np.float32).copy()
+    b, h, w = out.shape
+    rc = lib.corrupt_batch(out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                           codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                           b, h, w, severity)
+    if rc != 0:
+        raise RuntimeError(f"corrupt_batch failed: rc={rc}")
     return out

@@ -28,6 +28,8 @@ draws nothing.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 from torch.nn import functional as F
 
@@ -543,8 +545,9 @@ class _GraphedStep:
     outside the graph. Inside it, the batch is gathered from the resident
     ``data`` and ``labels`` by ``idx``; with a ``styler`` (the dataset's
     ``style``) ``data`` is None and ``style_arrays`` = (raw [N, H, W],
-    style_idx, draws): the batch's raw rows, style indices and zigzag draws
-    are gathered and styled there (K3, zigzag and canny), then given their
+    style_idx, draws): the batch's raw rows, style indices and draws
+    (zigzag's, and each sample's key) are gathered and styled there (K3 and
+    the torch styles, which draw from the keys there), then given their
     channel dimension. ``_body()`` is what a subclass captures: the step on
     the staged batch.
 
@@ -621,12 +624,22 @@ class _GraphedStep:
     def _capture(self):
         graph, launches = torch.cuda.CUDAGraph(), GraphLaunches()
         name = type(self.step).__name__
+        # no automatic garbage collection while the stream captures: one
+        # that frees an older trainer's graph resets that graph, a call the
+        # capture refuses, and the capture fails (a MIG sweep's CLEAR-MIM
+        # capture did so on the card; torch.cuda.graph collects just
+        # before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with launches.capture(), torch.cuda.graph(graph):
                 out = self._body()
         except Exception as exc:
             raise RuntimeError(f"capturing the step {name} in a CUDA graph "
                                f"failed: {exc}") from exc
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = (graph, out, launches)
 
 

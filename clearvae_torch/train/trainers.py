@@ -34,6 +34,7 @@ from clearvae_torch import resolve_device
 from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
+from clearvae_torch.ops import prng as P
 from clearvae_torch.train import steps as S
 from clearvae_torch.utils.cache import enable_compilation_cache
 
@@ -262,6 +263,7 @@ class TrainerCore:
                 hist = torch.stack([h[-1] for h, _ in hists]).cpu().numpy()
             else:
                 hist = hists[0][0].cpu().numpy()
+            P.check_poisson(self.device)
             self.history.append({k: hist[:, j] for j, k in enumerate(keys)})
             self._post_train_epoch(self.history[-1])
             last = {k: v[-1] for k, v in self.history[-1].items()}
@@ -402,6 +404,7 @@ class VAETrainerBase(TrainerCore):
             k: (float(v.cpu().numpy().sum())
                 + (float(tail[k]) if tail is not None else 0.0)) / n_batches
             for k, v in outs.items() if k not in S.GraphedEval.LATENTS}
+        P.check_poisson(self.device)
         z_c, z_s = outs["z_c"], outs["z_s"]
         if tail is not None:
             z_c = torch.cat([z_c, tail["z_c"]])

@@ -21,7 +21,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from clearvae_torch.data.mnist import synthetic_mnist
 from clearvae_torch.data.styled import StyledDataset, make_styled_mnist
-from clearvae_torch.ops.corruptions import EXPERIMENT_STYLES, style_batch
+from clearvae_torch.ops.corruptions import (ALL_CORRUPTIONS, CORRUPTIONS,
+                                            EXPERIMENT_STYLES, style_batch)
 from clearvae_torch.train import factories as TF
 from clearvae_torch.train import steps as S
 from clearvae_torch.train.trainers import DownstreamMLPTrainer
@@ -99,13 +100,21 @@ def _all_six_styles(n=64, seed=2):
     return StyledDataset(imgs, labels, sidx, EXPERIMENT_STYLES, seed)
 
 
-def test_style_batch_reads_nothing_on_the_host():
-    ds = _all_six_styles()
+@pytest.mark.parametrize("styles", [
+    EXPERIMENT_STYLES, tuple((n, None) for n in CORRUPTIONS),
+    tuple((n, None) for n in ALL_CORRUPTIONS)],
+    ids=["experiment", "mnist_c", "all"])
+def test_style_batch_reads_nothing_on_the_host(styles):
+    """Every style, the random ones drawing from their keys (normal's
+    erfinv, Poisson's capped loops and counter) included."""
+    imgs, labels = synthetic_mnist(64, seed=2)
+    sidx = (np.arange(64) % len(styles)).astype(np.int32)
+    ds = StyledDataset(imgs, labels, sidx, styles, 2)
     raw, sidx, draws = ds.device_arrays("cpu")
-    assert sorted(set(sidx[:32].tolist())) == list(range(6))
-    first = style_batch(raw[:32], sidx[:32], draws[:32])   # makes constants
+    assert sorted(set(sidx[:32].tolist())) == list(range(len(styles)))
+    first = style_batch(raw[:32], sidx[:32], draws[:32], styles)  # constants
     with HostReads() as mode:
-        again = style_batch(raw[:32], sidx[:32], draws[:32])
+        again = style_batch(raw[:32], sidx[:32], draws[:32], styles)
     assert mode.seen == []
     assert torch.equal(first, again)
 

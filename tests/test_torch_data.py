@@ -96,7 +96,7 @@ def test_deterministic_styles_match_jax(images, name, severity, atol):
         code = torch.full((len(imgs),), K3.STYLE_CODES[name], dtype=torch.int32)
         got = K3.style_batch_kernel(x, code, severity or 5)
     else:
-        got = TC.STYLE_FNS[name](x)
+        got = TC.CORRUPTION_FNS[name](x)
     np.testing.assert_allclose(got.numpy(), ref, atol=atol, rtol=0)
 
 
@@ -118,12 +118,12 @@ def test_zigzag_matches_jax_given_the_same_draws(images):
 
 def test_zigzag_draws_keyed_by_seed_and_sample():
     ids = torch.arange(5000)
-    r0, dr = TC.zigzag_draws(3, ids)
+    r0, dr = TC.style_draws(3, ids)[:, :2].unbind(1)
     assert int(r0.min()) == 0 and int(r0.max()) == 26
     assert int(dr.min()) == -5 and int(dr.max()) == 4
-    r0b, drb = TC.zigzag_draws(3, ids[1234:1300])
+    r0b, drb = TC.style_draws(3, ids[1234:1300])[:, :2].unbind(1)
     assert torch.equal(r0b, r0[1234:1300]) and torch.equal(drb, dr[1234:1300])
-    r0c, _ = TC.zigzag_draws(4, ids)
+    r0c = TC.style_draws(4, ids)[:, 0]
     assert not torch.equal(r0c, r0)
 
 
@@ -138,8 +138,14 @@ def test_device_arrays_carry_jax_draws_of_absolute_ids(images):
             jax.random.fold_in(jax.random.key(8), i)))(half.sample_ids)
         r0 = jax.vmap(lambda k: jax.random.randint(k, (), 0, 27))(keys[:, 0])
         dr = jax.vmap(lambda k: jax.random.randint(k, (), -5, 5))(keys[:, 1])
-        np.testing.assert_array_equal(draws.numpy(),
+        np.testing.assert_array_equal(draws[:, :2].numpy(),
                                       np.stack([r0, dr], 1).astype(np.int64))
+        # and each sample's own key, from which the other styles draw
+        base = jax.random.key(8)
+        keys = jax.vmap(lambda i: jax.random.key_data(
+            jax.random.fold_in(base, i)))(half.sample_ids)
+        np.testing.assert_array_equal(draws[:, 2:].numpy(),
+                                      np.asarray(keys).astype(np.int64))
 
 
 def test_materialize_matches_jax_outside_zigzag(images):

@@ -108,7 +108,7 @@ def _jax_styled(styles, imgs, style_idx, seed):
 def test_style_batch_routes_k3_and_matches_jax(batch, styles, monkeypatch):
     style_idx = np.arange(len(batch), dtype=np.int32) % len(styles)
     ref = _jax_styled(styles, batch, style_idx, 4)
-    draws = torch.stack(TC.zigzag_draws(4, torch.arange(len(batch))), 1)
+    draws = TC.style_draws(4, torch.arange(len(batch)))
     calls = []
 
     def counting(x, code, severity, out=None):
