@@ -16,7 +16,8 @@ Phases, each fatal on failure:
                 with a non-unit cotangent; two K1, K2f and K2b calls
                 bit-identical; K1 one launch a call each way, K2f and K2b
                 one launch a call (profiler). Timed at (B, z/2) = (128, 8),
-                (2048, 8) and (128, 32), phase 8's shape, with CUDA events
+                (512, 8) and (2048, 8), the perf rows' (phase 11), and
+                (128, 32), phase 8's shape, with CUDA events
                 and, per call, the profiler's device time. The
                 styler K3: all seven codes × severities 1–5 at B = 128, 100
                 and 512 (atol 1e-3 on the 0..255 scale), and rows of
@@ -186,8 +187,46 @@ Phases, each fatal on failure:
                 fit's captured step replayed and profiled (wall, device
                 busy, idle share, kernels a step, images/sec).
 
-Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9, 10 (phases 5 and 7 train
-on phase 3's data; phase 9 reads phase 4's result).
+11. parallel — data and tensor parallelism (``clearvae_torch/parallel``)
+                at the flagship widths on phase 3's data. (a) One rank
+                over NCCL in this process (``init_process_group`` on a
+                ``HashStore``): on ``make_mesh(1)`` and on
+                ``make_mesh2d(1, 1)``, the fused CLEAR trainer and the
+                styled unfused one fit eagerly and graphed (2 epochs and
+                1; 1 each on 1 × 1; ``cudnn.deterministic``): graphed =
+                eager at 0.0, and eager fits of 8 steps (the CPU tests'
+                horizon, 1,024 of the images) on the mesh within those
+                tests' bars of the no-mesh fit's (per-batch losses rtol
+                2e-4, parameters 8e-3); by replay K1 once a step each
+                way (fused), K3 once a step (styled) and the mesh's
+                collectives (all-reduces: two a BatchNorm, two for the
+                gathered heads, one for the metrics, one for the
+                gradients, one more on 1 × 1, the model axis's gather)
+                in the graph; the fused TC trainer 1 epoch graphed (K2f
+                = K2b once a step); the graphed ``evaluate`` (K2f twice a
+                batch); one replay
+                profiled for NCCL's kernels; after (b), the fused step
+                timed on ``make_mesh(1)`` (``bench.time_steps``; phase 7
+                times it without a mesh). A one-rank mesh runs every
+                collective. (b) Two ranks on the one card over gloo,
+                child processes of this
+                script with ``CLEARVAE_TORCH_NO_LOCK=1`` (they share the
+                card on purpose; this process holds the lock): one eager
+                DP(2) step of the fused CLEAR and of the fused TC trainer
+                on CUDA tensors against this process's single-rank step at
+                the CPU tests' bars (loss rtol 1e-5, the gradients each
+                optimizer applies, summed over the ranks, rtol 1e-5 with
+                an atol of 1e-5 of the largest, and parameters within
+                max(1e-3·max|a|, 1.2e-3); TC rtol 2e-4), both ranks'
+                parameters equal at 0.0. (c) The root bench's four 28×28
+                perf rows (``clear_28_bf16``, ``clear_28_fusedheads``,
+                ``perf_mode_b2048_bf16``, ``perf_mode_b512_bf16_fusedheads``)
+                through ``bench.time_steps``: images/sec, device-busy ms,
+                idle share and FLOP share a turn, K1 counted at B = 512
+                and 2,048.
+
+Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9, 10, 11 (phases 5, 7 and
+11 train on phase 3's data; phase 9 reads phase 4's result).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -219,10 +258,11 @@ PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
 # where z is 8, 16, 32 or 64; 16 warps a CTA up to z = 16, 8 above), its
 # column-tile ring (RING_SHAPE), and singleton-label rows (17, 8)
 SHAPES = [(128, 8), (100, 7), (128, 16), (100, 12), (128, 32), (100, 24),
-          (100, 48), (2048, 8), (2048, 64), (17, 8)]
+          (100, 48), (512, 8), (2048, 8), (2048, 64), (17, 8)]
 RING_SHAPE = (2048, 64)
-# B=128, z=8 is the main path's shape; z=32 the 64×64 path's (phase 8)
-TIMED = [(128, 8), (2048, 8), (128, 32)]
+# B=128, z=8 is the main path's shape; z=32 the 64×64 path's (phase 8);
+# B=512 and 2,048 at z=8 the 28×28 perf rows' (phase 11)
+TIMED = [(128, 8), (512, 8), (2048, 8), (128, 32)]
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
 SOURCE = {"clear_latent_fwdgrad": "clearvae_torch/csrc/clear_latent.cu",
           "clear_latent_bwd": "clearvae_torch/csrc/clear_latent.cu",
@@ -2375,6 +2415,454 @@ def phase_corruptions(gpu):
     return total
 
 
+PAR_BENCH_STEPS = 10     # steps a turn of the four 28×28 perf rows
+PAR_LOSS_RTOL = 2e-4     # tests/test_torch_parallel.py's fit bar
+PAR_HORIZON = 8          # over that file's fit: 2 epochs of 4 steps
+PAR_PARAM_ATOL = 8e-3    # and the fit's parameters after them
+PAR_STEP_RTOL = 1e-5     # and its step bar (loss, gradients)
+
+
+def _collectives_per_step(tc: bool, tp: bool) -> int:
+    """All-reduces a train step issues on a mesh: the VAE's 7 BatchNorms
+    twice (forward and backward), a gathered operand twice, the metrics
+    once, each module's gradients once; on a 2-D mesh one more a module
+    (the model-axis all-gather of the updated shards). CLEAR gathers its
+    heads; CLEAR-TC the heads (c_loss) and z in phase 1, then runs a
+    no-grad forward (7) and gathers z2 in phase 2 for the classifier."""
+    if not tc:
+        return 2 * 7 + 2 + 1 + 1 + (1 if tp else 0)
+    return 2 * 7 + 2 + 2 + 1 + 7 + 1 + 1 + 1 + (2 if tp else 0)
+
+
+def _par_fit(factory, kw, train_ds, epochs, **fit_kw):
+    """``_graph_fit`` with the mesh's collectives counted too."""
+    from clearvae_torch.parallel import mesh as PM
+
+    PM.reset_collectives()
+    trainer, launches = _graph_fit(factory, kw, train_ds, epochs, **fit_kw)
+    return trainer, {**launches, **PM.COLLECTIVES}
+
+
+# the biases ahead of a BatchNorm: their gradient is analytically zero,
+# float noise that Adam turns into steps of ±lr
+PRE_BN_BIASES = ("encoder.convs.", "decoder.dense.", "decoder.convts.")
+
+
+def _pre_bn_bias(name: str) -> bool:
+    return name.startswith(PRE_BN_BIASES) and name.endswith(".bias")
+
+
+def _param_diff(a, b, leave_out=lambda name: False) -> float:
+    """Max abs difference of two trainers' model parameters, without the
+    BatchNorm buffers and the names ``leave_out`` picks."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return max(float((sb[k].double() - v.double()).abs().max())
+               for k, v in sa.items()
+               if "running" not in k and not leave_out(k))
+
+
+def _horizon_params(tag, kw, fit_kw, ds, mesh, base=None):
+    """Eager fits of one epoch of PAR_HORIZON batches of ``ds`` (the CPU
+    tests' horizon: later steps amplify float differences chaotically,
+    the fused and the unfused flagship end 2 epochs ~1 % apart), alone
+    (``base``, made when None) and on ``mesh``: fails unless the mesh
+    fit's parameters are within PAR_PARAM_ATOL and its per-batch losses
+    within PAR_LOSS_RTOL of the single fit's. With graphed = eager at 0.0
+    on the mesh, this holds the graphed mesh fit to the single device.
+    Returns (base, max parameter diff, the same without the biases ahead
+    of a BatchNorm, max rel loss diff)."""
+    from clearvae_torch.train.factories import get_clearvae_trainer
+
+    if base is None:
+        base = _graph_fit(get_clearvae_trainer, kw, ds, 1, use_scan=False,
+                          **fit_kw)[0]
+    other = _graph_fit(get_clearvae_trainer, {**kw, "mesh": mesh}, ds, 1,
+                       use_scan=False, **fit_kw)[0]
+    la, lb = base.history[0]["loss"], other.history[0]["loss"]
+    rel = float((np.abs(lb - la) / np.abs(la)).max())
+    worst = _param_diff(base, other)
+    rest = _param_diff(base, other, _pre_bn_bias)
+    if (len(la) != PAR_HORIZON or len(lb) != PAR_HORIZON
+            or worst > PAR_PARAM_ATOL or rel > PAR_LOSS_RTOL):
+        fail(f"{tag}: after {len(lb)} steps (of {PAR_HORIZON}) the "
+             f"parameters are {worst:.3e} (bar {PAR_PARAM_ATOL}) and the "
+             f"losses {rel:.3e} (bar {PAR_LOSS_RTOL}) from the single fit's")
+    return base, worst, rest, rel
+
+
+def _dp_inputs(train_ds):
+    """Phase 11 (b)'s batch: the first 128 styled images of phase 3's data,
+    its labels, and numpy noise for one CLEAR step and one CLEAR-TC step
+    (global shapes: each rank slices its rows)."""
+    rs = np.random.RandomState(11)
+
+    def normal(*shape):
+        return torch.as_tensor(rs.randn(*shape).astype(np.float32))
+
+    x = train_ds.materialize(torch.device("cuda"))[:128].cpu()[..., None]
+    return {"x": x, "label": torch.as_tensor(np.asarray(train_ds.labels[:128])),
+            "eps": normal(2, 128, 8),
+            "noise_tc": (normal(2, 128, 8), normal(2, 128, 8))}
+
+
+def _record_grads(optimizer, out: list) -> None:
+    """Make ``optimizer`` append the gradients it is about to apply (on
+    the CPU, in its parameters' order) to ``out`` at each step: under a
+    mesh, the gradients summed over the data axis."""
+    update = optimizer.step
+
+    def step_and_record(*a, **k):
+        out.append([p.grad.detach().cpu() for group in optimizer.param_groups
+                    for p in group["params"] if p.grad is not None])
+        return update(*a, **k)
+    optimizer.step = step_and_record
+
+
+def _dp_steps(inp, mesh):
+    """One eager step of the fused CLEAR and of the fused CLEAR-TC trainer
+    (from their factories, seed 0, on the card) on ``inp``, on ``mesh``
+    (this rank's rows) or alone: {name: (metrics, model state on the
+    CPU, the gradients each optimizer applied)}."""
+    from clearvae_torch.train.factories import (get_cleartcvae_trainer,
+                                                get_clearvae_trainer)
+
+    out = {}
+    dev = torch.device("cuda")
+    x, label = inp["x"].to(dev), inp["label"].to(dev)
+    for name, factory, kw, noise in (
+            ("clear", get_clearvae_trainer, dict(ps=True), inp["eps"].to(dev)),
+            ("clear-tc", get_cleartcvae_trainer,
+             dict(la=1, factor_cls_lr=1e-4),
+             tuple(n.to(dev) for n in inp["noise_tc"]))):
+        t = factory(**{**ADV_COMMON, **kw, "mesh": mesh})
+        grads = []
+        for opt in (t.optimizer, getattr(t, "factor_optimizer", None)):
+            if opt is not None:
+                _record_grads(opt, grads)
+        m = t.train_step(t.shard.rows(x), label, noise)
+        torch.cuda.synchronize()
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     {k: v.detach().cpu() for k, v in
+                      t.model.state_dict().items()},
+                     [g for gs in grads for g in gs])
+    return out
+
+
+def _dp_child(argv):
+    """``chip_smoke.py --dp-child RANK PORT DIR``: rank RANK of phase 11
+    (b)'s two gloo ranks on the one card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from clearvae_torch.parallel import make_mesh
+    from clearvae_torch.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()   # fp32 as the parent (the lock: skipped)
+    rank, port, d = int(argv[0]), int(argv[1]), argv[2]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=True)
+        out = _dp_steps(inp, make_mesh(2, device_type="cuda"))
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_kernels_in_replay(trainer):
+    """(NCCL kernels, all kernels) in one replay of ``trainer``'s captured
+    train step, by the profiler."""
+    from clearvae_torch.bench import profile_window
+
+    ep = next(fn for key, (_, fn) in trainer._graphs.items()
+              if key[0] != "eval")
+    graph = ep.graph[0]
+    for _ in range(3):
+        with profile_window() as prof:
+            graph.replay()
+        by_name, counts = _device_kernels(prof, counts=True)
+        names = [k for k in counts if not k.startswith(("Memcpy", "Memset"))]
+        if names:
+            return (sum(counts[k] for k in names if "nccl" in k.lower()),
+                    sum(counts[k] for k in names))
+    fail("the profiler recorded no kernel in three replays of a mesh step")
+
+
+def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
+    """Phase 11 (a): one rank over NCCL (whose process group the caller
+    holds), on make_mesh(1) and on make_mesh2d(1, 1); returns the fused
+    CLEAR trainer to time, {mesh: trainer}: make_mesh(1)'s (phase 7 times
+    the no-mesh step in this process)."""
+    from clearvae_torch.data.styled import StyledDataset
+    from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.parallel import make_mesh, make_mesh2d
+    from clearvae_torch.parallel import mesh as PM
+    from clearvae_torch.train.factories import (get_cleartcvae_trainer,
+                                                get_clearvae_trainer)
+
+    # name: (factory kwargs, fit kwargs, epochs on make_mesh(1)); every fit
+    # of the 2-D mesh and the styled ones (~40 ms an eager step) are cut to
+    # 1 epoch, to hold the phase to a minute
+    runs = {"clear fused": (dict(ps=True), {}, 2),
+            "clear styled unfused": (dict(ps=True,
+                                          hyperparameter={"fused": False}),
+                                     {"style_on_device": True}, 1)}
+    det = torch.backends.cudnn.deterministic
+    n_h = PAR_HORIZON * 128
+    horizon_ds = StyledDataset(train_ds.images[:n_h], train_ds.labels[:n_h],
+                               train_ds.style_idx[:n_h], train_ds.styles,
+                               train_ds.seed, train_ds.sample_ids[:n_h])
+    horizon_base = {}
+    timed = {}
+    for mesh_name, make in (("make_mesh(1)", lambda: make_mesh(1)),
+                            ("make_mesh2d(1, 1)", lambda: make_mesh2d(1, 1))):
+        mesh = make()
+        tp = mesh_name.startswith("make_mesh2d")
+        for name, (kw, fit_kw, most) in runs.items():
+            epochs = 1 if tp else most
+            t0 = time.perf_counter()
+            torch.backends.cudnn.deterministic = True
+            try:
+                kw = {**ADV_COMMON, **kw, "mesh": mesh}
+                eager, le = _par_fit(get_clearvae_trainer, kw, train_ds,
+                                     epochs, use_scan=False, **fit_kw)
+                graphed, lg = _par_fit(get_clearvae_trainer, kw,
+                                       train_ds, epochs, use_scan=True,
+                                       **fit_kw)
+                horizon_base[name], h_params, h_rest, h_loss = _horizon_params(
+                    f"{mesh_name} {name}", {**ADV_COMMON, **runs[name][0]},
+                    fit_kw, horizon_ds, mesh, horizon_base.get(name))
+            finally:
+                torch.backends.cudnn.deterministic = det
+            n = graphed.train_step.step
+            diff = _same_training(f"{mesh_name} {name} graphed vs eager",
+                                  eager, graphed)
+            fused = "fused" in name and "unfused" not in name
+            # the graphed fit adds the warm-up's one collective
+            want = {"clear_latent_fwdgrad": n * fused,
+                    "clear_latent_bwd": n * fused, "snn_fwd": 0,
+                    "snn_bwd": 0,
+                    "style_batch": n * bool(fit_kw),
+                    "all_reduce": n * _collectives_per_step(False, tp)}
+            if n != ADV_STEPS * epochs // 2 or le != want or lg != {
+                    **want, "all_reduce": want["all_reduce"] + 1}:
+                fail(f"{mesh_name} {name}: {n} updates; launches eager "
+                     f"{le}, graphed (replays) {lg}; expected {want}")
+            for k in total:
+                total[k] += lg[k]
+            print(f"[parallel] {mesh_name} {name}: {n} graphed updates "
+                  f"== eager, max abs diff {diff:.3e} "
+                  f"(cudnn.deterministic); eager fits of {PAR_HORIZON} "
+                  f"steps on the mesh and alone: parameters {h_params:.3e} "
+                  f"apart (bar {PAR_PARAM_ATOL}; {h_rest:.3e} without the "
+                  f"biases ahead of BatchNorm), losses {h_loss:.3e} rel "
+                  f"(bar {PAR_LOSS_RTOL}); "
+                  f"launches by replay {lg} "
+                  f"({time.perf_counter() - t0:.2f} s)")
+            if fused and not tp:
+                nccl, kernels = _nccl_kernels_in_replay(graphed)
+                print(f"[parallel] {mesh_name} {name}: one replay of the "
+                      f"captured step: {kernels} kernels, {nccl} of "
+                      f"them NCCL's, for "
+                      f"{_collectives_per_step(False, tp)} all-reduces "
+                      f"captured (one rank: NCCL reduces in place "
+                      f"without a kernel); {gpu}")
+            if fused:
+                FL.reset_launches()
+                PM.reset_collectives()
+                mig, mse = graphed.evaluate(valid_ds, batch_size=128)
+                torch.cuda.synchronize()
+                n_eval = -(-len(valid_ds) // 128)
+                if (not (math.isfinite(mig) and math.isfinite(mse))
+                        or FL.LAUNCHES["snn_fwd"] != 2 * n_eval):
+                    fail(f"{mesh_name} evaluate: MIG {mig}, MSE {mse}, "
+                         f"K2f {FL.LAUNCHES['snn_fwd']} for {n_eval} "
+                         f"batches")
+                total["snn_fwd"] += FL.LAUNCHES["snn_fwd"]
+                print(f"[parallel] {mesh_name} graphed evaluate: MIG "
+                      f"{mig:.4f}, MSE {mse:.3f}, K2f "
+                      f"{FL.LAUNCHES['snn_fwd']} for {n_eval} batches, "
+                      f"{PM.COLLECTIVES['all_reduce']} all-reduces")
+                if not tp:
+                    timed[mesh_name] = graphed
+        t0 = time.perf_counter()
+        tc, lt = _par_fit(get_cleartcvae_trainer,
+                          {**ADV_COMMON, "la": 1, "factor_cls_lr": 1e-4,
+                           "mesh": mesh}, train_ds, 1, use_scan=True)
+        n = tc.train_step.step
+        want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
+                "snn_fwd": n, "snn_bwd": n, "style_batch": 0,
+                "all_reduce": 1 + n * _collectives_per_step(True, tp)}
+        if lt != want:
+            fail(f"{mesh_name} clear-tc fused: launches by replay {lt}, "
+                 f"expected {want}")
+        for k in total:
+            total[k] += lt[k]
+        print(f"[parallel] {mesh_name} clear-tc fused: {n} graphed "
+              f"updates, launches by replay {lt} "
+              f"({time.perf_counter() - t0:.2f} s)")
+    return timed
+
+
+def _par_time(tag, trainer, train_ds, gpu):
+    """The fused CLEAR step of ``trainer`` timed by ``bench.time_steps``
+    (eager, graphed, graphed, eager; PAR_BENCH_STEPS steps a turn)."""
+    from clearvae_torch.bench import time_steps
+
+    for mode, r in time_steps(trainer, train_ds, n=PAR_BENCH_STEPS).items():
+        print(f"[parallel] {tag} fused CLEAR {mode} step (B=128): wall "
+              f"{'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, device "
+              f"busy {r['device_busy_ms']:.3f} ms, idle share "
+              f"{'/'.join(f'{v:.3f}' for v in r['idle_share'])}, "
+              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
+              f"{'/'.join(f'{v:.1f}' for v in r['images_per_sec'])}; {gpu}")
+
+
+def _phase_parallel_bench(gpu):
+    """Phase 11 (c): the four 28×28 perf rows through ``time_steps``;
+    returns {row: K1 launches}."""
+    from clearvae_torch import bench as TB
+    from clearvae_torch.ops.kernels import fused_loss as FL
+
+    data, k1 = {}, {}
+    for kind, (batch, bf16, _, n_images) in TB.ROWS28.items():
+        if n_images not in data:
+            data[n_images] = TB.data28(n_images, torch.device("cuda"))
+        flops = TB.clear_vae_train_flops_per_image(batch=batch)
+        peak = TB.PEAK_BF16_FLOPS if bf16 else TB.PEAK_FP32_FLOPS
+        FL.reset_launches()
+        row = TB.row_stats(TB.make_trainer(kind, "cuda"), data[n_images],
+                           PAR_BENCH_STEPS, flops, peak, batch)
+        torch.cuda.synchronize()
+        k1[kind] = FL.LAUNCHES["clear_latent_fwdgrad"]
+        if k1[kind] == 0:
+            fail(f"{kind}: K1 was launched no time")
+        for mode in ("eager", "graphed"):
+            r = row[mode]
+            if not all(math.isfinite(v) and v > 0
+                       for v in r["images_per_sec"]):
+                fail(f"{kind} {mode}: images/sec {r['images_per_sec']}")
+            print(f"[parallel] bench {kind} (B={batch}, "
+                  f"{'bf16' if bf16 else 'fp32'}) {mode}: images/sec "
+                  f"{'/'.join(f'{v:.1f}' for v in r['images_per_sec'])}, "
+                  f"wall {'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, "
+                  f"device busy {r['device_busy_ms']:.3f} ms, idle share "
+                  f"{'/'.join(f'{v:.3f}' for v in r['idle_share'])}, FLOP "
+                  f"share {'/'.join(f'{v:.4f}' for v in r['flop_share'])}, "
+                  f"{r['kernels_per_step']:.1f} kernels/step; {gpu}")
+    print(f"[parallel] K1 launches in the four rows' runs: {k1}")
+    return k1
+
+
+def phase_parallel(gpu, train_ds, valid_ds, here):
+    """Phase 11: data and tensor parallelism (see the module docstring);
+    returns {kernel: launches} of the graphed fits and evaluations under
+    the one-rank meshes, each counted from zero just before and read just
+    after."""
+    import shutil
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in (*REPLACES, "style_batch", "all_reduce")}
+    d = os.path.join(here, ".runs", "chip_smoke_parallel")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    inp = _dp_inputs(train_ds)
+    torch.save(inp, os.path.join(d, "inputs.pt"))
+    port = _free_port()
+    env = {**os.environ, "CLEARVAE_TORCH_NO_LOCK": "1", "PYTHONPATH": here}
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-child", str(r),
+         str(port), d], env=env, cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        timed = _phase_parallel_one_rank(gpu, train_ds, valid_ds, total)
+        t_a = time.perf_counter()
+        alone = _dp_steps(inp, None)
+        logs = [c.communicate(timeout=300)[0] for c in children]
+        t_b = time.perf_counter()
+        # timed with the card to this process again
+        for tag, trainer in timed.items():
+            _par_time(tag, trainer, train_ds, gpu)
+        t_t = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    for c, log in zip(children, logs):
+        if c.returncode != 0:
+            fail(f"a gloo rank on the card exited {c.returncode}: "
+                 f"{log[-2000:]}")
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
+    for name, (metrics, state, grads) in alone.items():
+        # the atol: 1e-5 of the largest entry (an analytically zero
+        # gradient, of the conv biases ahead of BatchNorm, is float noise)
+        scale = max(float(g.abs().max()) for g in grads)
+        gdiff = 0.0
+        for r in ranks:
+            m, st, gr = r[name]
+            if len(gr) != len(grads):
+                fail(f"DP(2) {name}: {len(gr)} gradients applied, the single "
+                     f"rank {len(grads)}")
+            for i, (a, w) in enumerate(zip(gr, grads)):
+                gdiff = max(gdiff, float((a - w).abs().max()))
+                excess = float(((a - w).abs() - PAR_STEP_RTOL * w.abs()
+                                - 1e-5 * scale).max())
+                if excess > 0:
+                    fail(f"DP(2) {name}: gradient {i} before the update is "
+                         f"{excess:.3e} beyond rtol {PAR_STEP_RTOL} (atol "
+                         f"{1e-5 * scale:.2e}) of the single rank's")
+            if m.keys() != metrics.keys():
+                fail(f"DP(2) {name}: metrics {sorted(m)}")
+            keys = ("loss", "c_loss") if name == "clear" else tuple(metrics)
+            rtol = PAR_STEP_RTOL if name == "clear" else 2e-4
+            for k in keys:
+                if abs(m[k] - metrics[k]) > rtol * abs(metrics[k]):
+                    fail(f"DP(2) {name} {k}: {m[k]} against {metrics[k]} "
+                         f"alone (rtol {rtol})")
+            for k, v in state.items():
+                if "running" in k:
+                    continue
+                tol = max(1e-3 * max(float(v.abs().max()), 1e-3), 1.2e-3)
+                if float((st[k] - v).abs().max()) > tol:
+                    fail(f"DP(2) {name} {k}: beyond {tol:.2e} of the single "
+                         f"rank's update")
+        for k, v in ranks[0][name][1].items():
+            if not torch.equal(v, ranks[1][name][1][k]):
+                fail(f"DP(2) {name}: the two ranks' {k} differ")
+        print(f"[parallel] two gloo ranks on one card (CLEARVAE_TORCH_NO_LOCK"
+              f"=1: the children share the card on purpose): DP(2) {name} "
+              f"step loss {ranks[0][name][0]['loss']:.6f} against the single "
+              f"rank's {metrics['loss']:.6f}; the {len(grads)} gradients "
+              f"applied (summed over the ranks) within rtol {PAR_STEP_RTOL} "
+              f"of the single rank's (max abs diff {gdiff:.3e}, largest "
+              f"entry {scale:.3e}); within the CPU tests' bars; both "
+              f"ranks' parameters equal")
+    k1 = _phase_parallel_bench(gpu)
+    t_end = time.perf_counter()
+    print(f"[parallel] whole phase {t_end - t_phase:.2f} s (one rank "
+          f"{t_a - t_phase:.2f}, the two gloo ranks' wait {t_b - t_a:.2f}, "
+          f"the steps timed {t_t - t_b:.2f}, the four rows "
+          f"{t_end - t_t:.2f}); launches on the meshes {total}")
+    return {**total, "bench_k1": k1}
+
+
 def _device_kernels(prof, counts: bool = False):
     """({kernel name: device us}, kernel count) of a profile, without the
     host ranges that the profiler mirrors onto the device timeline (a
@@ -2520,10 +3008,12 @@ def main():
     s64 = phase_sixty_four(gpu, here)
     art = phase_artifacts(gpu, here)
     corr = phase_corruptions(gpu)
+    par = phase_parallel(gpu, train_ds, valid_ds, here)
     by_path = {name: {"main": launches[name], "adversarial": adv[name],
                       "graph": graph[name], "downstream": down[name],
                       "mig": mig[name], "sixty-four": s64[name],
-                      "artifacts": art[name], "corruptions": corr[name]}
+                      "artifacts": art[name], "corruptions": corr[name],
+                      "parallel": par[name]}
                for name in (*REPLACES, "style_batch")}
     # ``launches``: each kernel's count on the path that its slice put it on
     # (K1: the fused CLEAR trainer; K2f/K2b: the fused CLEAR-TC and
@@ -2547,6 +3037,11 @@ def main():
                  "style_batch"):
         if by_path[name]["corruptions"] == 0:
             fail(f"{name} was launched no time on the corruptions path")
+    # this slice's path, the meshes' graphed fits and evaluations, runs
+    # every kernel
+    for name in (*REPLACES, "style_batch"):
+        if by_path[name]["parallel"] == 0:
+            fail(f"{name} was launched no time on the parallel path")
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=by_path[name][own[name]],
                     max_abs_err=errs[name], **times[(name, 128, 8)],
@@ -2558,16 +3053,22 @@ def main():
                         max_abs_err=k3_err, **k3_times[128], library_ms=None,
                         launches_by_path=by_path["style_batch"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
-          f"(phases 1-10, the build included)")
+          f"(phases 1-11, the build included)")
     print(gpu)
     print(json.dumps({"kernels": kernels, "shape": {"B": 128, "z": 8, "H": 28},
                       "b2048": {n: times[(n, 2048, 8)] for n in REPLACES},
                       "b128_z32": {n: times[(n, 128, 32)] for n in REPLACES},
-                      "b512": {"style_batch": k3_times[512]}}))
+                      "b512": {**{n: times[(n, 512, 8)] for n in REPLACES},
+                               "style_batch": k3_times[512]},
+                      "parallel_all_reduce": par["all_reduce"],
+                      "bench28_k1": par["bench_k1"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-child"]:
+        _dp_child(sys.argv[2:])
+    else:
+        main()

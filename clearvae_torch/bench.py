@@ -1,8 +1,9 @@
-"""Training throughput of the port on one card: the flagship, CLEAR-TC,
-CLEAR-MIM and the two 64×64 rows of the repository's ``bench.py``, each
-eager and graphed.
+"""Training throughput of the port: the flagship, CLEAR-TC, CLEAR-MIM, the
+four 28×28 perf rows and the two 64×64 rows of the repository's
+``bench.py``, each eager and graphed.
 
     python -m clearvae_torch.bench [--steps 20]
+    torchrun --nproc_per_node N -m clearvae_torch.bench   # on a data mesh
 
 Flagship configuration (reference run_styledmnist_downstream_expr.py:
 231-238): Styled-MNIST CLEAR-VAE, z_dim = 16, batch 128, β = 1/8, α = 100,
@@ -13,10 +14,28 @@ CLUB-S, λ = 3, estimator Adam 2e-3. Each trainer comes from its factory
 card. The 64×64 rows (``ROWS64``, ``bench.py``'s ``vae64_clear`` and
 ``vae64_bf16_b256``): the same CLEAR trainer on ``VAE64``, z = 64, on
 uniform random 64×64×3 images with labels 0..9 as ``bench.py`` makes them,
-float32 at B = 128 and bfloat16 conv stacks at B = 256. Each row is timed
+float32 at B = 128 and bfloat16 conv stacks at B = 256. The 28×28 perf
+rows (``ROWS28``, ``bench.py``'s ``clear_28_bf16``, ``clear_28_fusedheads``,
+``perf_mode_b2048_bf16`` and ``perf_mode_b512_bf16_fusedheads``): the
+flagship CLEAR trainer with bfloat16 conv stacks and/or the four latent
+heads in one Linear, at B = 128, 2,048 and 512, on the root bench's
+synthetic Styled-MNIST (4,096 images; 8,192 at B = 2,048). Its
+``_permute`` and ``_unroll4`` twins are left out: their knobs run the
+port's one-step graph unchanged (``fit``'s ``scan_gather`` and
+``scan_unroll``). So are both ``convpack`` rows: the port's
+``first_conv_pack`` is the plain conv (``models/vae.py``), so they would
+repeat their parents. Each row is timed
 by ``time_steps``, the port's one step timer
 (``chip_smoke.py`` and ``experiments/kernel_ab.py`` time with it too):
 eager and graphed steps in turns on the same batches.
+
+Under a launched multi-rank job (``WORLD_SIZE`` > 1, as torchrun sets it)
+every 28×28 row runs on a data mesh over the job's cards (NCCL; the root
+bench shards over a data mesh when it sees more than one device), each
+rank on its block of every global batch; images/sec count the global
+batch, the FLOP share is against the peaks of all the cards, and rank 0
+prints. The 64×64 rows are left out there: VAE64 is not ported under a
+mesh (its factories raise for one).
 
 Prints one JSON line: per row and mode, images/sec and the FLOP share per
 turn (the analytic training FLOPs a second over the card's fp32 peak; TF32
@@ -105,26 +124,50 @@ ROWS = {
 }
 
 
+# bench.py's 28×28 perf rows: (batch, bfloat16 conv stacks, fused heads,
+# images of synthetic Styled-MNIST)
+ROWS28 = {"clear_28_bf16": (128, True, False, 4096),
+          "clear_28_fusedheads": (128, False, True, 4096),
+          "perf_mode_b2048_bf16": (2048, True, False, 8192),
+          "perf_mode_b512_bf16_fusedheads": (512, True, True, 4096)}
+
 # bench.py's 64×64 rows: (batch, bfloat16 conv stacks)
 ROWS64 = {"vae64_clear": (128, False), "vae64_bf16_b256": (256, True)}
 SHAPE64 = dict(z_dim=64, size=64, in_ch=3)
 
 
-def make_trainer(kind: str, device: str = "cuda"):
-    """The row's trainer from its factory (seed 0)."""
+def make_trainer(kind: str, device: str | None = "cuda", mesh=None):
+    """The row's trainer from its factory (seed 0), on ``mesh`` when given
+    (its device then the rank's)."""
+    import torch
+
     from clearvae_torch.train import factories as TF
 
+    on = {"device": device, "mesh": mesh}
+    if kind in ROWS28:
+        _, bf16, fused_heads, _ = ROWS28[kind]
+        vae = {"dtype": torch.bfloat16} if bf16 else {}
+        vae.update({"fused_heads": True} if fused_heads else {})
+        return TF.get_clearvae_trainer(**COMMON, ps=True, vae_kwargs=vae, **on)
     if kind in ROWS64:
-        import torch
-
         kw = {"vae_kwargs": {"dtype": torch.bfloat16}} if ROWS64[kind][1] \
             else {}
         return TF.get_clearvae_trainer(
             **{**COMMON, "z_dim": SHAPE64["z_dim"]}, ps=True,
-            vae_arch="VAE64", in_channel=SHAPE64["in_ch"], device=device,
-            **kw)
+            vae_arch="VAE64", in_channel=SHAPE64["in_ch"], **on, **kw)
     name, kw = ROWS[kind]
-    return getattr(TF, name)(**COMMON, **kw, device=device)
+    return getattr(TF, name)(**COMMON, **kw, **on)
+
+
+def data28(n: int, device):
+    """The root bench's 28×28 data: ``n`` synthetic digits (seed 0),
+    Styled-MNIST of the six styles, styled once on ``device``."""
+    from clearvae_torch.data.mnist import synthetic_mnist
+    from clearvae_torch.data.styled import make_styled_mnist
+
+    ds = make_styled_mnist(*synthetic_mnist(n, seed=0), seed=0)
+    ds.materialize(device)
+    return ds
 
 
 def data64(n: int):
@@ -189,11 +232,23 @@ def profile_window():
         time.sleep(SETTLE_S)
 
 
+def batch_rows(n_data: int, n: int, batch: int):
+    """[n, batch] sample indices of ``time_steps``: permutations of the
+    ``n_data`` samples by ``RandomState(1)``, one after another, as many as
+    ``n`` batches take."""
+    import numpy as np
+
+    rs = np.random.RandomState(1)
+    perms = [rs.permutation(n_data) for _ in range(-(-n * batch // n_data))]
+    return np.concatenate(perms)[: n * batch].reshape(n, batch)
+
+
 def time_steps(trainer, ds, n: int = 20,
                trace_dir: str | None = None, batch: int = BATCH) -> dict:
     """The port's step timer: ``n`` train steps of ``trainer`` on the same
-    ``n`` batches of ``batch`` images of ``ds`` (a fixed permutation of the
-    materialized path's resident data), eager (``make_epoch_fn``, the loop
+    ``n`` batches of ``batch`` images of ``ds`` (fixed permutations of the
+    materialized path's resident data, as many as ``n`` batches take),
+    eager (``make_epoch_fn``, the loop
     of ``fit``) and graphed (``make_graphed_epoch_fn``, one replay a step)
     where the package has it. After one warm-up run of each mode (the
     graphed one's warm-up steps and its capture), the modes run in
@@ -216,8 +271,8 @@ def time_steps(trainer, ds, n: int = 20,
     from clearvae_torch.train import steps as S
 
     data, labels = trainer._device_data(ds)
-    rows = torch.as_tensor(np.random.RandomState(1).permutation(len(labels))
-                           [: n * batch].reshape(n, batch), device=labels.device)
+    rows = torch.as_tensor(batch_rows(len(labels), n, batch),
+                           device=labels.device)
     eager = S.make_epoch_fn(trainer.train_step)
     fns = {"eager": lambda: eager(data, labels, rows, trainer._train_noise)}
     if hasattr(S, "make_graphed_epoch_fn"):
@@ -260,7 +315,7 @@ def time_steps(trainer, ds, n: int = 20,
 def row_stats(trainer, ds, steps: int, flops: float, peak: float,
               batch: int = BATCH) -> dict:
     """One row of the bench: ``time_steps`` of the trainer per mode, with
-    the FLOP share of each turn against ``peak``."""
+    the FLOP share of each turn against ``peak`` (the job's, on a mesh)."""
     row = {"flops_per_image": flops, "batch": batch, "peak_flops": peak}
     for mode, r in time_steps(trainer, ds, n=steps, batch=batch).items():
         row[mode] = {
@@ -278,6 +333,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    import os
+
     import torch
 
     from clearvae_torch import resolve_device
@@ -285,10 +342,20 @@ def main(argv=None):
     from clearvae_torch.data.styled import make_styled_mnist
     from clearvae_torch.utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # the card to itself, and fp32: TF32 off
-    dev = resolve_device(args.device)
+    mesh, world = None, int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        import torch.distributed as dist
+
+        from clearvae_torch.parallel.mesh import make_mesh, mesh_device
+
+        dist.init_process_group("nccl")
+        mesh = make_mesh(world)
+        torch.cuda.set_device(mesh_device(mesh))
+    dev = resolve_device(args.device if mesh is None else mesh_device(mesh))
+    enable_compilation_cache(dev)  # the card to itself, and fp32: TF32 off
     if dev.type != "cuda":
         raise SystemExit("clearvae_torch.bench measures a CUDA card")
+    on = {"device": None if mesh is not None else args.device, "mesh": mesh}
     ds = make_styled_mnist(*synthetic_mnist(args.steps * BATCH, seed=0),
                            seed=0)
     ds.materialize(dev)
@@ -298,19 +365,30 @@ def main(argv=None):
     configs = {}
     for kind in ROWS:
         flops = clear_vae_train_flops_per_image(variant=kind)
-        configs[kind] = row_stats(make_trainer(kind, args.device), ds,
-                                  args.steps, flops, PEAK_FP32_FLOPS)
-    for kind, (batch, bf16) in ROWS64.items():
+        configs[kind] = row_stats(make_trainer(kind, **on), ds,
+                                  args.steps, flops, world * PEAK_FP32_FLOPS)
+    data = {}
+    for kind, (batch, bf16, _, n_images) in ROWS28.items():
+        if n_images not in data:
+            data[n_images] = data28(n_images, dev)
+        flops = clear_vae_train_flops_per_image(batch=batch)
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+        configs[kind] = row_stats(make_trainer(kind, **on), data[n_images],
+                                  args.steps, flops, world * peak, batch)
+    for kind, (batch, bf16) in ({} if mesh is not None else ROWS64).items():
         flops = clear_vae_train_flops_per_image(batch=batch, **SHAPE64)
         configs[kind] = row_stats(
-            make_trainer(kind, args.device), data64(args.steps * batch),
-            args.steps, flops, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
-            batch)
-    print(json.dumps({
-        "metric": "images_per_sec", "batch": BATCH, "z_dim": Z_DIM,
-        "steps": args.steps, "peak_fp32_flops": PEAK_FP32_FLOPS,
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": card[0] if card else None, "configs": configs}))
+            make_trainer(kind, **on), data64(args.steps * batch),
+            args.steps, flops,
+            world * (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS), batch)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(json.dumps({
+            "metric": "images_per_sec", "batch": BATCH, "z_dim": Z_DIM,
+            "steps": args.steps, "peak_fp32_flops": PEAK_FP32_FLOPS,
+            "world": world, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": card[0] if card else None, "configs": configs}))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

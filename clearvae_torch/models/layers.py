@@ -21,6 +21,8 @@ public boundary, which stays NHWC as in the JAX package.
   bfloat16 computes in bfloat16 while Adam updates float32 weights.
   ``BatchNorm`` keeps its statistics in float32 whatever its input and
   returns its input's dtype, as flax's BatchNorm does for bfloat16 inputs.
+- Under a data mesh (``parallel/mesh.py``) a ``BatchNorm``'s ``group`` is
+  the data group, and its train-mode statistics cover the global batch.
 """
 
 from __future__ import annotations
@@ -87,11 +89,18 @@ class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of [N, C] or [N, C, H, W] with flax's running
     statistics (momentum 0.1, eps 1e-5, biased variance). The statistics
     and the normalization are computed in float32 and the result is cast
-    to the input's dtype."""
+    to the input's dtype.
+
+    With a process ``group`` (the data group of a mesh) the train-mode
+    statistics are the global batch's: the per-channel Σx and Σx² and the
+    row count, one float32 buffer, are all-reduced over the group
+    (differentiably: the backward all-reduces their gradients), and the
+    mean and ``E[x²] − E[x]²`` taken from the sums."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -103,8 +112,11 @@ class BatchNorm(nn.Module):
         dtype, x = x.dtype, x.float()
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(dims)
-            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            if self.group is None:
+                mean = x.mean(dims)
+                var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            else:
+                mean, var = self._global_stats(x, dims)
         if train and update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
@@ -116,6 +128,16 @@ class BatchNorm(nn.Module):
         mul = self.weight * torch.rsqrt(var + self.eps)
         return ((x - mean.view(shape)) * mul.view(shape)
                 + self.bias.view(shape)).to(dtype)
+
+    def _global_stats(self, x: torch.Tensor, dims):
+        from clearvae_torch.parallel.mesh import all_reduce_sum
+
+        c = x.shape[1]
+        rows = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), rows]),
+                              self.group)
+        mean = sums[:c] / sums[2 * c]
+        return mean, (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
 
 
 class ConvBNReluStack(nn.Module):

@@ -125,13 +125,17 @@ class VAE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True, eps=None,
                 generator: torch.Generator | None = None,
-                label: torch.Tensor | None = None):
+                label: torch.Tensor | None = None, shard=None):
         """(x_hat, latent_params, z) — the JAX package's ``explicit=True``
         output. Noise: ``eps`` = (eps_c, eps_s) if given, else two draws
         from ``generator`` (z_c first, then z_s; reference vae.py:62-79).
 
         With ``label`` (GVAE/MLVAE) latent_params carry the [n_classes, z]
-        group params under mu_c/logvar_c and a ``present`` mask."""
+        group params under mu_c/logvar_c and a ``present`` mask. Under a
+        data mesh (``shard``, a ``parallel.mesh.Shard``) ``x`` and ``eps``
+        are this rank's rows and ``label`` the global batch's: the evidence
+        is accumulated over the gathered mu_c and logvar_c, and each local
+        row draws from its group."""
         mu_c, logvar_c, mu_s, logvar_s = self.encode(x, train)
         if eps is None:
             eps = [torch.randn(mu_c.shape, generator=generator,
@@ -140,9 +144,14 @@ class VAE(nn.Module):
         if label is not None:
             if self.group_mode is None:
                 raise ValueError("label given but group_mode is None")
+            own = label
+            if shard is not None:
+                n = label.shape[0]
+                mu_c, logvar_c = shard.gather(mu_c, n), shard.gather(logvar_c, n)
+                own = shard.rows(label)
             mu_g, logvar_g, present = accumulate_group_evidence(
                 mu_c, logvar_c, label, self.n_classes, self.group_mode)
-            z_c = group_reparam(mu_g, logvar_g, label, eps[0])
+            z_c = group_reparam(mu_g, logvar_g, own, eps[0])
             latent_params = {"mu_c": mu_g, "logvar_c": logvar_g,
                              "mu_s": mu_s, "logvar_s": logvar_s,
                              "present": present}

@@ -11,6 +11,11 @@ a presence mask, as in the JAX package:
 - each sample draws its own eps from its group's Gaussian;
 - the content KL is taken on the [n_classes, z] group params, a mean over
   the groups present.
+
+The evidence couples every row of a batch with its class mates, so under a
+data mesh it is accumulated over the batch's mu and logvar gathered from
+every rank (``VAE.forward`` with a ``parallel.mesh.Shard``); the functions
+here see the global batch either way.
 """
 
 from __future__ import annotations

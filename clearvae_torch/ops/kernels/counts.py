@@ -2,7 +2,8 @@
 captured CUDA graph.
 
 Each wrapper adds one to its counter (``fused_loss.LAUNCHES``,
-``style.LAUNCHES``) where it launches its kernel. Under stream capture the
+``style.LAUNCHES``) where it launches its kernel, and the mesh's
+collectives to ``parallel.mesh.COLLECTIVES`` where they are issued. Under stream capture the
 call launches nothing: it records the kernel into the graph, which launches
 it on every replay. ``GraphLaunches`` moves those counts from the capture to
 the replays, so the counters keep counting launches on the card.
@@ -13,8 +14,9 @@ from __future__ import annotations
 import contextlib
 
 from clearvae_torch.ops.kernels import fused_loss, style
+from clearvae_torch.parallel import mesh
 
-COUNTERS = (fused_loss.LAUNCHES, style.LAUNCHES)
+COUNTERS = (fused_loss.LAUNCHES, style.LAUNCHES, mesh.COLLECTIVES)
 
 
 class GraphLaunches:

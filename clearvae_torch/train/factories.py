@@ -16,6 +16,12 @@ the perf mode's ``{"dtype": torch.bfloat16, "fused_heads": True}``.
 Adam is ``trainers.adam``: ``fused`` and ``capturable`` on a CUDA device,
 so that one optimizer serves the eager step and the captured one (``fit``'s
 default) with the same kernels; torch's default Adam on the CPU.
+
+``mesh`` (``parallel.mesh.make_mesh`` or ``parallel.tp.make_mesh2d``)
+goes to the VAE trainers, as in the JAX factories; the device is then the
+rank's (``parallel.mesh.mesh_device``) unless ``device`` is given. The CNN
+and LAM trainers and the VAE trainers on ``VAE64`` are not ported under a
+mesh and raise for one.
 """
 
 from __future__ import annotations
@@ -40,14 +46,34 @@ def _seeded(seed: int, build):
         return build()
 
 
-def _adam(lr: float, device):
+def _adam(lr: float, device, mesh=None):
+    if device is None and mesh is not None:
+        from clearvae_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     return adam(lr, resolve_device(device))
+
+
+def _no_mesh(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{name} does not run under a mesh in the "
+                                  f"port yet (the 28×28 VAE trainers do)")
+
+
+def _vae(vae_arch: str, mesh, **kw):
+    """The ``vae_arch`` model, refused under a mesh unless it is the 28×28
+    ``VAE``."""
+    if vae_arch != "VAE":
+        _no_mesh(mesh, f"vae_arch={vae_arch!r}")
+    return MODELS[vae_arch](**kw)
 
 
 def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
                     in_channel: int = 1, verbose_period: int = 5,
-                    seed: int = 0, device=None, **_) -> SimpleCNNTrainer:
+                    seed: int = 0, device=None, mesh=None,
+                    **_) -> SimpleCNNTrainer:
     """reference trainer_utils.py:21-34 (Adam lr 1e-4)."""
+    _no_mesh(mesh, "get_cnn_trainer")
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
     return SimpleCNNTrainer(cnn, _adam(1e-4, device), verbose_period, seed, device)
@@ -55,8 +81,10 @@ def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
 
 def get_lamcnn_trainer(n_class, lam_coef, cnn_arch: str = "LAMCNNClassifier",
                        in_channel: int = 1, verbose_period: int = 5,
-                       seed: int = 0, device=None, **_) -> LAMCNNTrainer:
+                       seed: int = 0, device=None, mesh=None,
+                       **_) -> LAMCNNTrainer:
     """reference trainer_utils.py:37-56 (Adam lr 1e-4)."""
+    _no_mesh(mesh, "get_lamcnn_trainer")
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
     return LAMCNNTrainer(cnn, _adam(1e-4, device), {"lam_coef": lam_coef},
@@ -69,16 +97,16 @@ def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
                                  n_classes: int = 10,
                                  vae_kwargs: dict | None = None,
                                  mig_backend: str = "auto", device=None,
-                                 **_) -> HierarchicalVAETrainer:
+                                 mesh=None, **_) -> HierarchicalVAETrainer:
     """reference trainer_utils.py:59-84."""
-    vae = _seeded(seed, lambda: MODELS[vae_arch](
-        total_z_dim=z_dim, in_channel=in_channel, group_mode=group_mode,
-        n_classes=n_classes, **(vae_kwargs or {})))
+    vae = _seeded(seed, lambda: _vae(
+        vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
+        group_mode=group_mode, n_classes=n_classes, **(vae_kwargs or {})))
     return HierarchicalVAETrainer(
-        vae, _adam(vae_lr, device),
+        vae, _adam(vae_lr, device, mesh),
         hyperparameter={"beta": beta, "scale": 1, "loc": 0},
         verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
-        device=device)
+        device=device, mesh=mesh)
 
 
 def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
@@ -88,16 +116,17 @@ def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
                          vae_kwargs: dict | None = None,
                          mig_backend: str = "auto",
                          hyperparameter: dict | None = None,
-                         device=None, **_) -> CLEARVAETrainer:
+                         device=None, mesh=None, **_) -> CLEARVAETrainer:
     """reference trainer_utils.py:87-116, Adam(``vae_lr``)."""
-    vae = _seeded(seed, lambda: MODELS[vae_arch](
-        total_z_dim=z_dim, in_channel=in_channel, **(vae_kwargs or {})))
+    vae = _seeded(seed, lambda: _vae(
+        vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
+        **(vae_kwargs or {})))
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "ps": ps,
           "loc": 0, "scale": 1, **(hyperparameter or {})}
     return CLEARVAETrainer(
-        vae, _adam(vae_lr, device), sim_fn=sim_fn, hyperparameter=hp,
+        vae, _adam(vae_lr, device, mesh), sim_fn=sim_fn, hyperparameter=hp,
         verbose_period=verbose_period, seed=seed, mig_backend=mig_backend,
-        device=device)
+        device=device, mesh=mesh)
 
 
 def get_cleartcvae_trainer(beta, la, vae_lr, factor_cls_lr, z_dim, alpha,
@@ -106,20 +135,20 @@ def get_cleartcvae_trainer(beta, la, vae_lr, factor_cls_lr, z_dim, alpha,
                            seed: int = 0, vae_kwargs: dict | None = None,
                            mig_backend: str = "auto",
                            hyperparameter: dict | None = None,
-                           device=None, **_) -> ClearTCVAETrainer:
+                           device=None, mesh=None, **_) -> ClearTCVAETrainer:
     """reference trainer_utils.py:119-157."""
     vae, factor_cls = _seeded(seed, lambda: (
-        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
-                         **(vae_kwargs or {})),
+        _vae(vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
+             **(vae_kwargs or {})),
         FactorCls(z_dim=z_dim)))
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "loc": 0,
           "scale": 1, "lambda": la, **(hyperparameter or {})}
     return ClearTCVAETrainer(
         vae, factor_cls,
-        optimizers={"vae_optim": _adam(vae_lr, device),
-                    "factor_optim": _adam(factor_cls_lr, device)},
+        optimizers={"vae_optim": _adam(vae_lr, device, mesh),
+                    "factor_optim": _adam(factor_cls_lr, device, mesh)},
         sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
-        seed=seed, mig_backend=mig_backend, device=device)
+        seed=seed, mig_backend=mig_backend, device=device, mesh=mesh)
 
 
 def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
@@ -129,22 +158,23 @@ def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
                             vae_kwargs: dict | None = None,
                             mig_backend: str = "auto",
                             hyperparameter: dict | None = None,
-                            device=None, **_) -> ClearMIMVAETrainer:
+                            device=None, mesh=None,
+                            **_) -> ClearMIMVAETrainer:
     """reference trainer_utils.py:160-201 (estimator sized
     x_dim=y_dim=z_dim//2, hidden=z_dim)."""
     vae, est = _seeded(seed, lambda: (
-        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
-                         **(vae_kwargs or {})),
+        _vae(vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
+             **(vae_kwargs or {})),
         MI_ESTIMATORS[mi_estimator](x_dim=z_dim // 2, y_dim=z_dim // 2,
                                     hidden_size=z_dim)))
     hp = {"temperature": temperature, "beta": beta, "loc": 0, "scale": 1,
           "alpha": alpha, "lambda": la, **(hyperparameter or {})}
     return ClearMIMVAETrainer(
         vae, est,
-        optimizers={"vae_optim": _adam(vae_lr, device),
-                    "mi_estimator_optim": _adam(mi_estimator_lr, device)},
+        optimizers={"vae_optim": _adam(vae_lr, device, mesh),
+                    "mi_estimator_optim": _adam(mi_estimator_lr, device, mesh)},
         sim_fn="cosine", hyperparameter=hp, verbose_period=verbose_period,
-        seed=seed, mig_backend=mig_backend, device=device)
+        seed=seed, mig_backend=mig_backend, device=device, mesh=mesh)
 
 
 def trainer_from_config(cfg, device=None):

@@ -24,6 +24,15 @@ forwards); a dict for CLEAR-MIM (``eps``, ``perm`` for CLUBSample's
 negatives, ``inner``, one [B, z] normal per estimator update); the two
 uniform [B] draws of the LAM-CNN step's stratified shuffle. The CNN step
 draws nothing.
+
+The VAE steps take a ``shard`` (``parallel.mesh.Shard``; the single
+device's identity ``Shard()`` by default). Under a data mesh a step is
+called with this rank's rows of ``x`` and the global batch's ``label`` and
+noise; it slices the noise of its rows, runs the batch-coupling terms on
+gathered latents, backpropagates its share of the global loss, sums the
+gradients over the data axis before each optimizer update, and returns the
+global metrics, equal on every rank (``parallel/mesh.py`` states the
+invariant). The epoch runners hand each rank its rows.
 """
 
 from __future__ import annotations
@@ -40,6 +49,25 @@ from clearvae_torch.ops.kernels.counts import GraphLaunches
 from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
                                                    fused_contrastive_loss)
 from clearvae_torch.ops.schedules import logistic_anneal
+from clearvae_torch.parallel.mesh import Shard
+
+_HEADS = ("mu_c", "logvar_c", "mu_s", "logvar_s")
+
+
+def _gathered(shard, lp, n: int, keys=_HEADS) -> dict:
+    """The latent heads ``keys`` of ``lp`` over the global batch of ``n``
+    rows, by one gather (``lp`` itself without a mesh)."""
+    if shard.mesh is None:
+        return lp
+    zd = lp[keys[0]].shape[-1]
+    g = shard.gather(torch.cat([lp[k] for k in keys], -1), n)
+    return dict(zip(keys, g.split(zd, -1)))
+
+
+def _shard_of(step) -> Shard:
+    """The ``Shard`` of a step (a closure's attribute), or the single
+    device's."""
+    return getattr(step, "shard", None) or Shard()
 
 
 def _contrastive(cc, mu, logvar, label, ps):
@@ -54,7 +82,8 @@ class _Counted:
     incremented in place, so that a captured step increments it on every
     replay; ``step`` reads it (a host sync)."""
 
-    def _init_count(self, model):
+    def _init_count(self, model, shard=None):
+        self.shard = shard or Shard()
         self.count = torch.zeros((), dtype=torch.int64,
                                  device=next(model.parameters()).device)
 
@@ -78,69 +107,93 @@ def _clear_terms(lp, label, cc):
 class ClearVAEStep(_Counted):
     """One CLEAR-VAE training step (reference CLEARVAETrainer._train,
     trainer.py:435-493), routed as ``make_clear_vae_step`` of the JAX
-    package. The anneal weight uses the count before the increment."""
+    package. The anneal weight uses the count before the increment. Under
+    a mesh K1 (or the unfused SNN terms) runs on the gathered heads, and
+    with K1 so do both KL terms."""
 
-    def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg):
+    def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg,
+                 shard=None):
         cc = contrastive_cfg
         self.model, self.optimizer = model, optimizer
         self.anneal_cfg, self.cc = anneal_cfg, cc
         self.use_fused = cc.fused and cc.sim_fn == "cosine" and cc.loss_name == "snn"
-        self._init_count(model)
+        self._init_count(model, shard)
 
     def loss(self, x, label, eps):
-        """(loss, metrics) of one train-mode forward; updates BN stats."""
-        cc = self.cc
-        x_hat, lp, _ = self.model(x, train=True, eps=eps)
+        """(loss, metrics) of one train-mode forward; updates BN stats.
+        Under a mesh the loss is this rank's share, the metrics global."""
+        cc, sh = self.cc, self.shard
+        n, b = label.shape[0], x.shape[0]
+        x_hat, lp, _ = self.model(x, train=True, eps=sh.rows(eps, 1))
+        g = _gathered(sh, lp, n)
         if self.use_fused:
             # one K1 call for KL(c) + KL(s) + SNN + PS-SNN and their grads
             recon = L.sample_level_reduction((x_hat - x) ** 2)
             kl_c, kl_s, c_loss, s_loss = fused_clear_latent_loss(
-                lp["mu_c"], lp["logvar_c"], lp["mu_s"], lp["logvar_s"], label,
+                g["mu_c"], g["logvar_c"], g["mu_s"], g["logvar_s"], label,
                 temperature=cc.temperature, ps=bool(cc.ps))
             if not cc.ps:
                 s_loss = -s_loss
+            kl_c, kl_s = sh.rep_share(kl_c), sh.rep_share(kl_s)
         else:
             recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                            lp["mu_s"], lp["logvar_s"])
-            c_loss, s_loss = _clear_terms(lp, label, cc)
+            kl_c, kl_s = sh.row_share(kl_c, b, n), sh.row_share(kl_s, b, n)
+            c_loss, s_loss = _clear_terms(g, label, cc)
+        recon = sh.row_share(recon, b, n)
+        c_loss, s_loss = sh.rep_share(c_loss), sh.rep_share(s_loss)
         w = self._anneal()
         loss = recon + w * kl_c + w * kl_s + cc.alpha * (c_loss + s_loss)
         metrics = {"loss": loss, "recon": recon, "kl_c": kl_c, "kl_s": kl_s,
                    "c_loss": c_loss, "s_loss": s_loss}
-        return loss, {k: v.detach() for k, v in metrics.items()}
+        return loss, sh.total({k: v.detach() for k, v in metrics.items()})
 
     def __call__(self, x, label, eps):
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(x, label, eps)
         loss.backward()
-        self.optimizer.step()
+        self.shard.step(self.optimizer, self.model)
         self.count.add_(1)
         return metrics
 
 
-def make_clear_vae_step(model, optimizer, anneal_cfg,
-                        contrastive_cfg) -> ClearVAEStep:
-    return ClearVAEStep(model, optimizer, anneal_cfg, contrastive_cfg)
+def make_clear_vae_step(model, optimizer, anneal_cfg, contrastive_cfg,
+                        shard=None) -> ClearVAEStep:
+    return ClearVAEStep(model, optimizer, anneal_cfg, contrastive_cfg, shard)
 
 
-def make_clear_vae_eval_step(model, contrastive_cfg):
+def _eval_totals(shard, b: int, n: int, rows: dict, gathered: dict) -> dict:
+    """An eval step's scalars over the global batch: ``rows`` are means over
+    this rank's ``b`` rows, ``gathered`` terms of the gathered rows."""
+    return shard.total({**{k: shard.row_share(v, b, n) for k, v in rows.items()},
+                        **{k: shard.rep_share(v) for k, v in gathered.items()}})
+
+
+def make_clear_vae_eval_step(model, contrastive_cfg, shard=None):
     """Eval-mode forward returning per-batch losses and sampled latents
     (reference CLEARVAETrainer.evaluate, trainer.py:495-570: MIG uses the
     *sampled* z halves, in running-stats mode). With ``fused`` the
-    contrastive terms go through K2f."""
+    contrastive terms go through K2f. Under a mesh the latents come back
+    gathered, [B, z] on every rank."""
+    shard = shard or Shard()
 
     @torch.no_grad()
     def eval_fn(x, label, eps):
-        x_hat, lp, z = model(x, train=False, eps=eps)
+        n, b = label.shape[0], x.shape[0]
+        x_hat, lp, z = model(x, train=False, eps=shard.rows(eps, 1))
         recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                        lp["mu_s"], lp["logvar_s"])
-        c_loss, s_loss = _clear_terms(lp, label, contrastive_cfg)
+        g = _gathered(shard, lp, n)
+        c_loss, s_loss = _clear_terms(g, label, contrastive_cfg)
         zd = lp["mu_c"].shape[-1]
-        return {"recon": recon, "kl_c": kl_c, "kl_s": kl_s,
-                "c_loss": c_loss, "s_loss": s_loss,
+        z = shard.gather(z, n)
+        return {**_eval_totals(shard, b, n,
+                               {"recon": recon, "kl_c": kl_c, "kl_s": kl_s},
+                               {"c_loss": c_loss, "s_loss": s_loss}),
                 "z_c": z[:, :zd], "z_s": z[:, zd:],
-                "mu_c": lp["mu_c"], "mu_s": lp["mu_s"]}
+                "mu_c": g["mu_c"], "mu_s": g["mu_s"]}
 
+    eval_fn.shard = shard
     return eval_fn
 
 
@@ -157,49 +210,65 @@ def _kl(mu, logvar):
 class HierarchicalStep(_Counted):
     """One GVAE/ML-VAE step (``make_hierarchical_step``): the content KL on
     the group params, recon and the style KL scaled by B/m, m the number of
-    groups present (trainer.py:322-324,345-348)."""
+    groups present (trainer.py:322-324,345-348). Under a mesh the group
+    evidence is the global batch's (``VAE.forward`` with the shard)."""
 
-    def __init__(self, model, optimizer, anneal_cfg):
+    def __init__(self, model, optimizer, anneal_cfg, shard=None):
         self.model, self.optimizer, self.anneal_cfg = model, optimizer, anneal_cfg
-        self._init_count(model)
+        self._init_count(model, shard)
 
     def __call__(self, x, label, eps):
+        sh = self.shard
+        n, b = label.shape[0], x.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
-        x_hat, lp, _ = self.model(x, train=True, eps=eps, label=label)
+        x_hat, lp, _ = self.model(x, train=True, eps=sh.rows(eps, 1),
+                                  label=label, shard=sh)
         recon = L.sample_level_reduction((x_hat - x) ** 2)
-        kl_c = grouped_kl(lp["mu_c"], lp["logvar_c"], lp["present"])
-        adj = x.shape[0] / lp["present"].sum().clamp_min(1)
-        recon, kl_s = recon * adj, _kl(lp["mu_s"], lp["logvar_s"]) * adj
+        kl_c = sh.rep_share(grouped_kl(lp["mu_c"], lp["logvar_c"],
+                                       lp["present"]))
+        adj = n / lp["present"].sum().clamp_min(1)
+        recon = sh.row_share(recon, b, n) * adj
+        kl_s = sh.row_share(_kl(lp["mu_s"], lp["logvar_s"]), b, n) * adj
         w = self._anneal()
         loss = recon + w * kl_c + w * kl_s
         loss.backward()
-        self.optimizer.step()
+        sh.step(self.optimizer, self.model)
         self.count.add_(1)
-        return {k: v.detach() for k, v in (("loss", loss), ("recon", recon),
-                                           ("kl_c", kl_c), ("kl_s", kl_s))}
+        return sh.total({k: v.detach() for k, v in (
+            ("loss", loss), ("recon", recon), ("kl_c", kl_c), ("kl_s", kl_s))})
 
 
-def make_hierarchical_step(model, optimizer, anneal_cfg) -> HierarchicalStep:
-    return HierarchicalStep(model, optimizer, anneal_cfg)
+def make_hierarchical_step(model, optimizer, anneal_cfg,
+                           shard=None) -> HierarchicalStep:
+    return HierarchicalStep(model, optimizer, anneal_cfg, shard)
 
 
-def make_hierarchical_eval_step(model, with_evidence_acc: bool = False):
+def make_hierarchical_eval_step(model, with_evidence_acc: bool = False,
+                                shard=None):
     """Eval-mode forward; with ``with_evidence_acc`` the content posterior
     is the batch's group evidence and its KL the grouped one."""
+    shard = shard or Shard()
 
     @torch.no_grad()
     def eval_fn(x, label, eps):
-        x_hat, lp, z = model(x, train=False, eps=eps,
-                             label=label if with_evidence_acc else None)
+        n, b = label.shape[0], x.shape[0]
+        x_hat, lp, z = model(x, train=False, eps=shard.rows(eps, 1),
+                             label=label if with_evidence_acc else None,
+                             shard=shard)
+        rows = {"recon": L.sample_level_reduction((x_hat - x) ** 2)}
         if with_evidence_acc:
-            kl_c = grouped_kl(lp["mu_c"], lp["logvar_c"], lp["present"])
+            gathered = {"kl_c": grouped_kl(lp["mu_c"], lp["logvar_c"],
+                                           lp["present"])}
         else:
-            kl_c = _kl(lp["mu_c"], lp["logvar_c"])
+            rows["kl_c"], gathered = _kl(lp["mu_c"], lp["logvar_c"]), {}
+        rows["kl_s"] = _kl(lp["mu_s"], lp["logvar_s"])
+        totals = _eval_totals(shard, b, n, rows, gathered)
         zd = z.shape[-1] // 2
-        return {"recon": L.sample_level_reduction((x_hat - x) ** 2),
-                "kl_c": kl_c, "kl_s": _kl(lp["mu_s"], lp["logvar_s"]),
+        z = shard.gather(z, n)
+        return {**{k: totals[k] for k in ("recon", "kl_c", "kl_s")},
                 "z_c": z[:, :zd], "z_s": z[:, zd:]}
 
+    eval_fn.shard = shard
     return eval_fn
 
 
@@ -226,27 +295,32 @@ class _TwoPlayerStep(_Counted):
     second player's optimizer. c_loss goes through ``_contrastive``: K2f
     forward and K2b backward when fused."""
 
-    def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg, la):
+    def __init__(self, model, optimizer, anneal_cfg, contrastive_cfg, la,
+                 shard=None):
         self.model, self.optimizer = model, optimizer
         self.anneal_cfg, self.cc, self.la = anneal_cfg, contrastive_cfg, la
         self.vae_params = list(model.parameters())
-        self._init_count(model)
+        self._init_count(model, shard)
 
     def _vae_update(self, x, label, eps, mi_loss_fn):
-        """(metrics, latent_params) of the update; ``mi_loss_fn(z)`` is the
-        second player's penalty on the sampled latents."""
-        cc = self.cc
+        """(metric shares, latent_params) of the update; ``mi_loss_fn(z)``
+        is the second player's penalty on the sampled latents, gathered
+        under a mesh."""
+        cc, sh = self.cc, self.shard
+        n, b = label.shape[0], x.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
-        x_hat, lp, z = self.model(x, train=True, eps=eps)
-        recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
-                                       lp["mu_s"], lp["logvar_s"])
-        c_loss = _contrastive(cc, lp["mu_c"], lp["logvar_c"], label, False)
-        mi_loss = mi_loss_fn(z)
+        x_hat, lp, z = self.model(x, train=True, eps=sh.rows(eps, 1))
+        recon, kl_c, kl_s = (sh.row_share(v, b, n) for v in L.vae_loss(
+            x_hat, x, lp["mu_c"], lp["logvar_c"], lp["mu_s"], lp["logvar_s"]))
+        g = _gathered(sh, lp, n, ("mu_c", "logvar_c"))
+        c_loss = sh.rep_share(_contrastive(cc, g["mu_c"], g["logvar_c"], label,
+                                           False))
+        mi_loss = sh.rep_share(mi_loss_fn(sh.gather(z, n)))
         w = self._anneal()
         loss = (recon + w * kl_c + w * kl_s + cc.alpha * c_loss
                 + self.la * mi_loss)
         loss.backward(inputs=self.vae_params)
-        self.optimizer.step()
+        sh.step(self.optimizer, self.model)
         metrics = {"loss": loss, "recon": recon, "kl_c": kl_c, "kl_s": kl_s,
                    "c_loss": c_loss, "mi_loss": mi_loss}
         return {k: v.detach() for k, v in metrics.items()}, lp
@@ -262,56 +336,68 @@ class ClearTCStep(_TwoPlayerStep):
     logits."""
 
     def __init__(self, model, factor_cls, optimizer, factor_optimizer,
-                 anneal_cfg, contrastive_cfg, tc_cfg):
+                 anneal_cfg, contrastive_cfg, tc_cfg, shard=None):
         super().__init__(model, optimizer, anneal_cfg, contrastive_cfg,
-                         tc_cfg.la)
+                         tc_cfg.la, shard)
         self.factor_cls, self.factor_optimizer = factor_cls, factor_optimizer
         self.shuffle_strategy = tc_cfg.shuffle_strategy
 
     def __call__(self, x, label, noise):
+        sh = self.shard
         eps_vae, eps_disc = noise
         metrics, _ = self._vae_update(
             x, label, eps_vae,
             lambda z: F.relu(self.factor_cls(z, return_logits=True)).mean())
         with torch.no_grad():
-            z2 = self.model(x, train=True, eps=eps_disc)[2]
+            z2 = sh.gather(self.model(x, train=True,
+                                      eps=sh.rows(eps_disc, 1))[2],
+                           label.shape[0])
         self.factor_optimizer.zero_grad(set_to_none=True)
         l_joint = self.factor_cls(z2, return_logits=True)
         l_marg = self.factor_cls(factor_shuffling(z2, self.shuffle_strategy),
                                  return_logits=True)
         logits = torch.cat([l_joint, l_marg])
         target = torch.cat([torch.ones_like(l_joint), torch.zeros_like(l_marg)])
-        d_loss = F.binary_cross_entropy_with_logits(logits, target)
+        d_loss = sh.rep_share(F.binary_cross_entropy_with_logits(logits,
+                                                                 target))
         d_loss.backward()
-        self.factor_optimizer.step()
+        sh.step(self.factor_optimizer, self.factor_cls)
         self.count.add_(1)
         metrics["factor_d_loss"] = d_loss.detach()
-        return metrics
+        return sh.total(metrics)
 
 
 def make_clear_tc_step(model, factor_cls, optimizer, factor_optimizer,
-                       anneal_cfg, contrastive_cfg, tc_cfg) -> ClearTCStep:
+                       anneal_cfg, contrastive_cfg, tc_cfg,
+                       shard=None) -> ClearTCStep:
     return ClearTCStep(model, factor_cls, optimizer, factor_optimizer,
-                       anneal_cfg, contrastive_cfg, tc_cfg)
+                       anneal_cfg, contrastive_cfg, tc_cfg, shard)
 
 
-def make_clear_tc_eval_step(model, factor_cls, contrastive_cfg):
+def make_clear_tc_eval_step(model, factor_cls, contrastive_cfg, shard=None):
     """Eval-mode forward; c_loss takes the plain path even when training is
     fused, as in the JAX package."""
+    shard = shard or Shard()
 
     @torch.no_grad()
     def eval_fn(x, label, eps):
-        x_hat, lp, z = model(x, train=False, eps=eps)
+        n, b = label.shape[0], x.shape[0]
+        x_hat, lp, z = model(x, train=False, eps=shard.rows(eps, 1))
         recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                        lp["mu_s"], lp["logvar_s"])
-        c_loss = L.contrastive_loss(lp["mu_c"], lp["logvar_c"], label,
+        g = _gathered(shard, lp, n, ("mu_c", "logvar_c"))
+        c_loss = L.contrastive_loss(g["mu_c"], g["logvar_c"], label,
                                     sim_fn=contrastive_cfg.sim_fn,
                                     temperature=contrastive_cfg.temperature)
+        z = shard.gather(z, n)
         mi_loss = F.relu(factor_cls(z, return_logits=True)).mean()
         zd = z.shape[-1] // 2
-        return {"recon": recon, "kl_c": kl_c, "kl_s": kl_s, "c_loss": c_loss,
-                "mi_loss": mi_loss, "z_c": z[:, :zd], "z_s": z[:, zd:]}
+        return {**_eval_totals(shard, b, n,
+                               {"recon": recon, "kl_c": kl_c, "kl_s": kl_s},
+                               {"c_loss": c_loss, "mi_loss": mi_loss}),
+                "z_c": z[:, :zd], "z_s": z[:, zd:]}
 
+    eval_fn.shard = shard
     return eval_fn
 
 
@@ -330,14 +416,15 @@ class ClearMIMStep(_TwoPlayerStep):
     noise. ``mi_learning_loss`` is the last inner loss."""
 
     def __init__(self, model, mi_estimator, optimizer, mi_optimizer,
-                 anneal_cfg, contrastive_cfg, mim_cfg):
+                 anneal_cfg, contrastive_cfg, mim_cfg, shard=None):
         super().__init__(model, optimizer, anneal_cfg, contrastive_cfg,
-                         mim_cfg.la)
+                         mim_cfg.la, shard)
         self.mi_estimator, self.mi_optimizer = mi_estimator, mi_optimizer
         self.reuse_phase1_encode = mim_cfg.reuse_phase1_encode
 
     def __call__(self, x, label, noise):
-        zd = self.model.z_dim
+        sh = self.shard
+        zd, n = self.model.z_dim, label.shape[0]
         metrics, lp = self._vae_update(
             x, label, noise["eps"],
             lambda z: _mi_estimate(self.mi_estimator, z[:, :zd], z[:, zd:],
@@ -347,43 +434,54 @@ class ClearMIMStep(_TwoPlayerStep):
                 heads = (lp["mu_c"], lp["logvar_c"], lp["mu_s"], lp["logvar_s"])
             else:
                 heads = self.model.encode(x, train=True, update_stats=False)
-            mu = torch.cat([heads[0], heads[2]], -1)
-            std = torch.exp(0.5 * torch.cat([heads[1], heads[3]], -1))
+            mu = sh.gather(torch.cat([heads[0], heads[2]], -1), n)
+            std = torch.exp(0.5 * sh.gather(torch.cat([heads[1], heads[3]], -1),
+                                            n))
         for eps in noise["inner"]:
             z = mu + eps * std
             self.mi_optimizer.zero_grad(set_to_none=True)
-            inner_loss = self.mi_estimator.learning_loss(z[:, :zd], z[:, zd:])
+            inner_loss = sh.rep_share(
+                self.mi_estimator.learning_loss(z[:, :zd], z[:, zd:]))
             inner_loss.backward()
-            self.mi_optimizer.step()
+            sh.step(self.mi_optimizer, self.mi_estimator)
         self.count.add_(1)
         metrics["mi_learning_loss"] = inner_loss.detach()
-        return metrics
+        return sh.total(metrics)
 
 
 def make_clear_mim_step(model, mi_estimator, optimizer, mi_optimizer,
-                        anneal_cfg, contrastive_cfg, mim_cfg) -> ClearMIMStep:
+                        anneal_cfg, contrastive_cfg, mim_cfg,
+                        shard=None) -> ClearMIMStep:
     return ClearMIMStep(model, mi_estimator, optimizer, mi_optimizer,
-                        anneal_cfg, contrastive_cfg, mim_cfg)
+                        anneal_cfg, contrastive_cfg, mim_cfg, shard)
 
 
-def make_clear_mim_eval_step(model, mi_estimator, contrastive_cfg):
+def make_clear_mim_eval_step(model, mi_estimator, contrastive_cfg,
+                             shard=None):
     """Eval-mode forward; ``noise`` is a dict of ``eps`` and ``perm``.
     c_loss takes the plain path, as in the JAX package."""
+    shard = shard or Shard()
 
     @torch.no_grad()
     def eval_fn(x, label, noise):
-        x_hat, lp, z = model(x, train=False, eps=noise["eps"])
+        n, b = label.shape[0], x.shape[0]
+        x_hat, lp, z = model(x, train=False, eps=shard.rows(noise["eps"], 1))
         recon, kl_c, kl_s = L.vae_loss(x_hat, x, lp["mu_c"], lp["logvar_c"],
                                        lp["mu_s"], lp["logvar_s"])
-        c_loss = L.contrastive_loss(lp["mu_c"], lp["logvar_c"], label,
+        g = _gathered(shard, lp, n, ("mu_c", "logvar_c"))
+        c_loss = L.contrastive_loss(g["mu_c"], g["logvar_c"], label,
                                     sim_fn=contrastive_cfg.sim_fn,
                                     temperature=contrastive_cfg.temperature)
+        z = shard.gather(z, n)
         zd = z.shape[-1] // 2
         mi_loss = _mi_estimate(mi_estimator, z[:, :zd], z[:, zd:],
                                noise["perm"])
-        return {"recon": recon, "kl_c": kl_c, "kl_s": kl_s, "c_loss": c_loss,
-                "mi_loss": mi_loss, "z_c": z[:, :zd], "z_s": z[:, zd:]}
+        return {**_eval_totals(shard, b, n,
+                               {"recon": recon, "kl_c": kl_c, "kl_s": kl_s},
+                               {"c_loss": c_loss, "mi_loss": mi_loss}),
+                "z_c": z[:, :zd], "z_s": z[:, zd:]}
 
+    eval_fn.shard = shard
     return eval_fn
 
 
@@ -483,10 +581,13 @@ def make_epoch_fn(step):
     """``epoch_fn(data, labels, batch_idx, draw_noise)``: one ``step`` per
     row of ``batch_idx`` [n_batches, B] on the gathered batch, with the
     noise ``draw_noise(B)`` makes; returns the per-step outputs. A train
-    step or an eval step (``make_eval_epoch_fn`` of the JAX package)."""
+    step or an eval step (``make_eval_epoch_fn`` of the JAX package).
+    Under a mesh the step gets this rank's rows of each batch and the
+    batch's labels and noise."""
+    own = _shard_of(step).rows
 
     def epoch_fn(data, labels, batch_idx, draw_noise):
-        return [step(data[idx], labels[idx], draw_noise(idx.numel()))
+        return [step(data[own(idx)], labels[idx], draw_noise(idx.numel()))
                 for idx in batch_idx]
 
     return epoch_fn
@@ -498,12 +599,18 @@ def make_styled_epoch_fn(step, styler):
     ``styler(raw, style_idx, draws)`` (the dataset's one protocol,
     ``StyledDataset.style``), given its channel dimension and stepped. Only
     the raw images stay resident; the pixels equal the materialized
-    path's. With an eval step it is ``make_styled_eval_epoch_fn``."""
+    path's. With an eval step it is ``make_styled_eval_epoch_fn``. Under a
+    mesh each rank styles its own rows of each batch."""
+    own = _shard_of(step).rows
 
     def epoch_fn(raw, labels, style_idx, draws, batch_idx, draw_noise):
-        return [step(styler(raw[idx], style_idx[idx], draws[idx])[..., None],
-                     labels[idx], draw_noise(idx.numel()))
-                for idx in batch_idx]
+        out = []
+        for idx in batch_idx:
+            mine = own(idx)
+            out.append(step(styler(raw[mine], style_idx[mine],
+                                   draws[mine])[..., None],
+                            labels[idx], draw_noise(idx.numel())))
+        return out
 
     return epoch_fn
 
@@ -549,13 +656,17 @@ class _GraphedStep:
     (zigzag's, and each sample's key) are gathered and styled there (K3 and
     the torch styles, which draw from the keys there), then given their
     channel dimension. ``_body()`` is what a subclass captures: the step on
-    the staged batch.
+    the staged batch. Under a mesh (the step's ``shard``) ``idx`` holds the
+    global batch: the rank gathers and styles its own rows of it, and the
+    labels of all of it.
 
     On a CUDA device the first ``WARMUP`` calls run as real calls on a side
     stream (lazy state such as Adam's moments, cuDNN's plans and the
     styles' constant tensors is made there, never in a capture); the next
     call captures the body in a graph and replays it, like every later
-    call. A capture failure raises; there is no eager fallback.
+    call. A capture failure raises; there is no eager fallback. Under a
+    mesh the warm-up first runs one collective, so that the communicator
+    (NCCL's) exists before a capture records the step's collectives.
     ``GraphLaunches`` moves the launches that the kernels' wrappers count
     during the capture to the replays. On the CPU (tests) the same body
     runs uncaptured on every call. The graph holds pointers to the
@@ -570,6 +681,7 @@ class _GraphedStep:
         self.step, self.data, self.labels = step, data, labels
         self.draw_noise, self.batch_size = draw_noise, batch_size
         self.styler, self.style_arrays = styler, style_arrays
+        self.shard = _shard_of(step)
         dev = labels.device
         self.cuda = dev.type == "cuda"
         self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
@@ -580,10 +692,11 @@ class _GraphedStep:
     def _batch(self):
         """The staged batch, (x [B, H, W, C], labels [B])."""
         idx = self.idx
+        mine = self.shard.rows(idx)
         if self.styler is None:
-            return self.data[idx], self.labels[idx]
+            return self.data[mine], self.labels[idx]
         raw, sidx, draws = self.style_arrays
-        return (self.styler(raw[idx], sidx[idx], draws[idx])[..., None],
+        return (self.styler(raw[mine], sidx[mine], draws[mine])[..., None],
                 self.labels[idx])
 
     def _stage(self, row):
@@ -611,6 +724,8 @@ class _GraphedStep:
         return out
 
     def _warm_up(self):
+        if self.warm == 0:
+            self.shard.warm(self.idx.device)
         side, main = torch.cuda.Stream(), torch.cuda.current_stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
@@ -631,12 +746,18 @@ class _GraphedStep:
         # before it begins)
         collecting = gc.isenabled()
         gc.disable()
+        # under a mesh, capture in thread-local mode: the process group's
+        # watchdog thread queries its events while the stream captures
+        mode = "global" if self.shard.mesh is None else "thread_local"
         try:
-            with launches.capture(), torch.cuda.graph(graph):
+            with launches.capture(), torch.cuda.graph(
+                    graph, capture_error_mode=mode):
                 out = self._body()
         except Exception as exc:
-            raise RuntimeError(f"capturing the step {name} in a CUDA graph "
-                               f"failed: {exc}") from exc
+            where = ("" if self.shard.mesh is None else
+                     " (under a mesh: with its NCCL collectives)")
+            raise RuntimeError(f"capturing the step {name} in a CUDA graph"
+                               f"{where} failed: {exc}") from exc
         finally:
             if collecting:
                 gc.enable()

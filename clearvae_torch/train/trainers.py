@@ -17,7 +17,19 @@ captured in a CUDA graph, styling included; on the CPU the same body runs
 uncaptured. ``use_scan=False`` is the eager loop, the reference that the
 graph is held to. Checkpoints hold the whole trainer state, the noise
 generator's included, so that a resumed ``fit(start_epoch=k)`` reproduces
-the uninterrupted run. Meshes are not ported.
+the uninterrupted run.
+
+Under a device mesh (``mesh=``, ``parallel.mesh.make_mesh`` or
+``parallel.tp.make_mesh2d``; the VAE trainers) each rank of a
+``torch.distributed`` job runs its trainer on its own device (its card,
+``cuda:{LOCAL_RANK}``, or the CPU on a gloo mesh) with the whole dataset
+resident: every rank draws the same permutations and noise, steps on its
+block of each global batch and sums its gradients over the data axis
+(``parallel/mesh.py``), so that the run computes the single-device
+numbers; a 2-D (data, model) mesh also shards the weights, BatchNorm
+buffers and Adam's moments over ``model`` (``parallel/tp.py``). ``history``
+and ``evaluate`` are the global ones, equal on every rank; rank 0 prints
+and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from clearvae_torch.models.factor import FactorCls
 from clearvae_torch.models.mlp import ProbeMLP
 from clearvae_torch.ops import metrics as MT
 from clearvae_torch.ops import prng as P
+from clearvae_torch.parallel import mesh as PM
 from clearvae_torch.train import steps as S
 from clearvae_torch.utils.cache import enable_compilation_cache
 
@@ -62,9 +75,13 @@ class TrainerCore:
     OPTIMIZERS = ("optimizer",)
 
     def __init__(self, model, verbose_period: int = 5, seed: int = 0,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(
+            PM.mesh_device(mesh) if device is None and mesh is not None
+            else device)
         self.model = model.to(self.device)
+        self.shard = PM.Shard()
         self.verbose_period = verbose_period
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -74,6 +91,12 @@ class TrainerCore:
         # styled), the eval steps' by ("eval", eval step, batch size,
         # styled), which holds the last dataset evaluated
         self._graphs: dict = {}
+
+    def _place(self, *modules) -> None:
+        """Place the trainer's modules on its mesh (``parallel.mesh.
+        place_state``), before their optimizers are built over
+        ``self.shard.parameters``."""
+        self.shard = PM.place_state(self.mesh, *modules)
 
     def _randn(self, shape, out=None):
         if out is None:
@@ -226,7 +249,7 @@ class TrainerCore:
         (``utils.cache.enable_compilation_cache``), as JAX's ``fit`` takes
         its lock: a library user trains alone on the card and gets the
         reference's fp32 numerics, runner or not."""
-        enable_compilation_cache()
+        enable_compilation_cache(self.device)
         if use_scan:
             if scan_unroll < 0:
                 raise ValueError("`unroll` must be a `bool` or a "
@@ -240,6 +263,9 @@ class TrainerCore:
         n = len(train_ds)
         batch_size = min(batch_size, n)  # tiny split: shrink, don't drop all
         n_batches = n // batch_size
+        if self.mesh is not None:
+            PM.warn_if_not_divisible(self.mesh, n)
+            PM.warn_if_not_divisible(self.mesh, batch_size, "batch size")
         run = (self._graphed_runner(train_ds, batch_size, style_on_device)
                if use_scan else self._eager_runner(train_ds, style_on_device))
         per_block = (max(1, int(epochs_per_scan))
@@ -267,14 +293,15 @@ class TrainerCore:
             self.history.append({k: hist[:, j] for j, k in enumerate(keys)})
             self._post_train_epoch(self.history[-1])
             last = {k: v[-1] for k, v in self.history[-1].items()}
-            if logger is not None:
+            if logger is not None and self.shard.leader:
                 dt = time.perf_counter() - t0
                 logger.log("train", step=self.train_step.step, epoch=end - 1,
                            images_per_sec=block * n / dt if dt > 0 else 0,
                            **{k: float(v) for k, v in last.items()})
             if any(e % self.verbose_period == 0 for e in range(epoch, end)):
-                print(f"epoch {end - 1}: "
-                      f"{ {k: round(float(v), 3) for k, v in last.items()} }")
+                if self.shard.leader:
+                    print(f"epoch {end - 1}: "
+                          f"{ {k: round(float(v), 3) for k, v in last.items()} }")
                 if valid_ds is not None:
                     self._verbose_valid(
                         valid_ds, batch_size,
@@ -293,11 +320,20 @@ class TrainerCore:
     def state_dict(self) -> dict:
         """The whole trainer state: each module's and optimizer's state
         dict, the train step's update count and the noise generator's
-        state."""
-        return {"modules": {m: getattr(self, m).state_dict()
-                            for m in self.MODULES},
-                "optimizers": {o: getattr(self, o).state_dict()
-                               for o in self.OPTIMIZERS},
+        state. On a 2-D mesh every rank takes part: the shards are gathered
+        (Adam's moments to their parameters' full shapes), so the dict is
+        the single-device trainer's."""
+        tp = self.shard.tp
+        mods = {m: getattr(self, m) for m in self.MODULES}
+        if tp is not None:
+            for module in mods.values():
+                tp.sync(module)
+        opts = {o: (getattr(self, o).state_dict() if tp is None
+                    else tp.full_optimizer_state(getattr(self, o), mods[m]))
+                for o, m in zip(self.OPTIMIZERS, self.MODULES)}
+        return {"modules": {m: module.state_dict()
+                            for m, module in mods.items()},
+                "optimizers": opts,
                 "step": self.train_step.count.detach().cpu().clone(),
                 "generator": self.generator.get_state()}
 
@@ -305,22 +341,36 @@ class TrainerCore:
         """Load ``state_dict()``'s dict into this trainer. Parameters,
         buffers and the update count are copied in place; the optimizers'
         state tensors are replaced, so the captured train steps, which point
-        at them, are dropped and the next graphed ``fit`` captures anew."""
-        for m in self.MODULES:
-            getattr(self, m).load_state_dict(state["modules"][m])
-        for o in self.OPTIMIZERS:
-            getattr(self, o).load_state_dict(state["optimizers"][o])
+        at them, are dropped and the next graphed ``fit`` captures anew. On
+        a 2-D mesh each rank takes its slices of the state."""
+        tp = self.shard.tp
+        for m, o in zip(self.MODULES, self.OPTIMIZERS):
+            module, sd = getattr(self, m), state["optimizers"][o]
+            module.load_state_dict(state["modules"][m])
+            if tp is not None:
+                tp.reshard(module)
+                sd = tp.shard_optimizer_state(sd, module)
+            getattr(self, o).load_state_dict(sd)
         self.train_step.count.copy_(state["step"])
         self.generator.set_state(state["generator"])
         self._graphs.clear()
 
     def save_checkpoint(self, directory: str, metadata: dict | None = None):
         """``utils.checkpoint.save_checkpoint`` of ``state_dict()`` at the
-        current update count; returns its path."""
-        from clearvae_torch.utils.checkpoint import save_checkpoint
+        current update count; returns its path. Under a mesh every rank
+        calls it and rank 0 writes the file, which every rank can read when
+        it returns."""
+        from clearvae_torch.utils.checkpoint import checkpoint_path, save_checkpoint
 
-        return save_checkpoint(directory, self.state_dict(),
-                               step=self.train_step.step, metadata=metadata)
+        state = self.state_dict()
+        if self.shard.leader:
+            path = save_checkpoint(directory, state,
+                                   step=self.train_step.step,
+                                   metadata=metadata)
+        else:
+            path = checkpoint_path(directory, self.train_step.step)
+        self.shard.barrier()
+        return path
 
     def restore_checkpoint(self, directory_or_path: str) -> dict:
         """Load the latest checkpoint of a directory (or the given one)."""
@@ -350,8 +400,8 @@ class VAETrainerBase(TrainerCore):
     trainer.py:78-92)."""
 
     def __init__(self, model, verbose_period: int = 5, seed: int = 0,
-                 mig_backend: str = "auto", device=None):
-        super().__init__(model, verbose_period, seed, device)
+                 mig_backend: str = "auto", device=None, mesh=None):
+        super().__init__(model, verbose_period, seed, device, mesh)
         self.mig_backend = MT.resolve_backend(mig_backend)
 
     def _verbose_valid(self, valid_ds, batch_size, style_on_device=False,
@@ -359,7 +409,8 @@ class VAETrainerBase(TrainerCore):
         mig, mse = self.evaluate(valid_ds, batch_size=batch_size,
                                  style_on_device=style_on_device,
                                  use_scan=use_scan)
-        print(f"gMIG: {round(mig, 3)}; mse: {round(float(mse), 3)}")
+        if self.shard.leader:
+            print(f"gMIG: {round(mig, 3)}; mse: {round(float(mse), 3)}")
 
     @torch.no_grad()
     def evaluate(self, ds, batch_size: int = 128, use_scan: bool = True,
@@ -376,7 +427,10 @@ class VAETrainerBase(TrainerCore):
         the CPU its body runs uncaptured. ``use_scan=False`` is the eager
         loop: the same numbers. ``style_on_device`` styles each batch on the device from
         the raw images, as ``fit`` does, inside the graph with
-        ``use_scan``."""
+        ``use_scan``. Under a mesh each rank evaluates its rows of every
+        batch and the eval step gathers the latents and totals the
+        scalars, so MIG and MSE come from the global arrays, equal on
+        every rank."""
         n = len(ds)
         bs = min(batch_size, n)
         nb = n // bs
@@ -457,9 +511,11 @@ class CLEARVAETrainer(VAETrainerBase):
 
     def __init__(self, model, optimizer, sim_fn: str, hyperparameter: dict,
                  verbose_period: int = 5, seed: int = 0,
-                 mig_backend: str = "auto", device=None):
-        super().__init__(model, verbose_period, seed, mig_backend, device)
-        self.optimizer = optimizer(self.model.parameters())
+                 mig_backend: str = "auto", device=None, mesh=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device,
+                         mesh)
+        self._place(self.model)
+        self.optimizer = optimizer(self.shard.parameters(self.model))
         self.hp = hyperparameter
         anneal = _anneal_cfg(hyperparameter)
         contr = C.ContrastiveConfig(
@@ -470,8 +526,9 @@ class CLEARVAETrainer(VAETrainerBase):
             fused=hyperparameter.get("fused", False))
         self.anneal_cfg, self.contr_cfg = anneal, contr
         self.train_step = S.make_clear_vae_step(self.model, self.optimizer,
-                                                anneal, contr)
-        self.eval_step = S.make_clear_vae_eval_step(self.model, contr)
+                                                anneal, contr, self.shard)
+        self.eval_step = S.make_clear_vae_eval_step(self.model, contr,
+                                                    self.shard)
 
 
 class HierarchicalVAETrainer(VAETrainerBase):
@@ -484,13 +541,16 @@ class HierarchicalVAETrainer(VAETrainerBase):
     def __init__(self, model, optimizer, hyperparameter: dict,
                  verbose_period: int = 5, seed: int = 0,
                  mig_backend: str = "auto", eval_evidence_acc: bool = False,
-                 device=None):
-        super().__init__(model, verbose_period, seed, mig_backend, device)
-        self.optimizer = optimizer(self.model.parameters())
+                 device=None, mesh=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device,
+                         mesh)
+        self._place(self.model)
+        self.optimizer = optimizer(self.shard.parameters(self.model))
         self.train_step = S.make_hierarchical_step(
-            self.model, self.optimizer, _anneal_cfg(hyperparameter))
-        self._eval_steps = {flag: S.make_hierarchical_eval_step(self.model, flag)
-                            for flag in (False, True)}
+            self.model, self.optimizer, _anneal_cfg(hyperparameter),
+            self.shard)
+        self._eval_steps = {flag: S.make_hierarchical_eval_step(
+            self.model, flag, self.shard) for flag in (False, True)}
         self.eval_step = self._eval_steps[eval_evidence_acc]
 
     def evaluate(self, ds, batch_size: int = 128,
@@ -520,21 +580,25 @@ class ClearTCVAETrainer(VAETrainerBase):
 
     def __init__(self, model, factor_cls: FactorCls, optimizers: dict,
                  sim_fn: str, hyperparameter: dict, verbose_period: int = 5,
-                 seed: int = 0, mig_backend: str = "auto", device=None):
-        super().__init__(model, verbose_period, seed, mig_backend, device)
+                 seed: int = 0, mig_backend: str = "auto", device=None,
+                 mesh=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device,
+                         mesh)
         self.factor_cls = factor_cls.to(self.device)
-        self.optimizer = optimizers["vae_optim"](self.model.parameters())
+        self._place(self.model, self.factor_cls)
+        self.optimizer = optimizers["vae_optim"](
+            self.shard.parameters(self.model))
         self.factor_optimizer = optimizers["factor_optim"](
-            self.factor_cls.parameters())
+            self.shard.parameters(self.factor_cls))
         self.hp = hyperparameter
         contr = _adversarial_contrastive_cfg(hyperparameter, sim_fn)
         self.contr_cfg = contr
         self.train_step = S.make_clear_tc_step(
             self.model, self.factor_cls, self.optimizer, self.factor_optimizer,
             _anneal_cfg(hyperparameter), contr,
-            C.TCConfig(la=hyperparameter["lambda"]))
+            C.TCConfig(la=hyperparameter["lambda"]), self.shard)
         self.eval_step = S.make_clear_tc_eval_step(self.model, self.factor_cls,
-                                                   contr)
+                                                   contr, self.shard)
         self.factor_d_losses: list = []
 
     def _train_noise(self, n: int, out=None):
@@ -559,12 +623,15 @@ class ClearMIMVAETrainer(VAETrainerBase):
 
     def __init__(self, model, mi_estimator, optimizers: dict, sim_fn: str,
                  hyperparameter: dict, verbose_period: int = 5, seed: int = 0,
-                 mig_backend: str = "auto", device=None):
-        super().__init__(model, verbose_period, seed, mig_backend, device)
+                 mig_backend: str = "auto", device=None, mesh=None):
+        super().__init__(model, verbose_period, seed, mig_backend, device,
+                         mesh)
         self.mi_estimator = mi_estimator.to(self.device)
-        self.optimizer = optimizers["vae_optim"](self.model.parameters())
+        self._place(self.model, self.mi_estimator)
+        self.optimizer = optimizers["vae_optim"](
+            self.shard.parameters(self.model))
         self.mi_optimizer = optimizers["mi_estimator_optim"](
-            self.mi_estimator.parameters())
+            self.shard.parameters(self.mi_estimator))
         self.hp = hyperparameter
         contr = _adversarial_contrastive_cfg(hyperparameter, sim_fn)
         self.contr_cfg = contr
@@ -574,9 +641,10 @@ class ClearMIMVAETrainer(VAETrainerBase):
                 hyperparameter.get("reuse_phase1_encode", False)))
         self.train_step = S.make_clear_mim_step(
             self.model, self.mi_estimator, self.optimizer, self.mi_optimizer,
-            _anneal_cfg(hyperparameter), contr, self.mim_cfg)
+            _anneal_cfg(hyperparameter), contr, self.mim_cfg, self.shard)
         self.eval_step = S.make_clear_mim_eval_step(self.model,
-                                                    self.mi_estimator, contr)
+                                                    self.mi_estimator, contr,
+                                                    self.shard)
         self.mi_losses: list = []
         self.mi_learning_losses: list = []
 
@@ -740,7 +808,7 @@ class DownstreamMLPTrainer:
         the CPU), the JAX package's one program for all the epochs;
         ``use_scan=False`` steps eagerly, with the same numbers. Takes the
         GPU lock and turns TF32 off first, as the VAE trainers' ``fit``."""
-        enable_compilation_cache()
+        enable_compilation_cache(self.device)
         if style_on_device and not cache_features:
             raise ValueError("style_on_device probe training requires "
                              "cache_features=True (the cached-feature path "

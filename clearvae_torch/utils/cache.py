@@ -17,10 +17,11 @@ from __future__ import annotations
 import torch
 
 
-def enable_compilation_cache() -> None:
-    """Take the GPU lock and turn TF32 off for cuDNN and cuBLAS."""
+def enable_compilation_cache(device=None) -> None:
+    """Take the lock of the card that ``device`` names (default: the
+    current card) and turn TF32 off for cuDNN and cuBLAS."""
     from clearvae_torch.utils.lock import acquire_gpu_lock
 
-    acquire_gpu_lock()
+    acquire_gpu_lock(device=device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

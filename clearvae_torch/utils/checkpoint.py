@@ -22,10 +22,10 @@ def save_checkpoint(directory: str, trainer_state: dict,
                     metadata: dict | None = None) -> str:
     """Save a trainer state dict; returns the checkpoint's path. ``step``
     defaults to the state's update count."""
-    directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     step = int(trainer_state["step"]) if step is None else int(step)
-    path = os.path.join(directory, f"step_{step:08d}.pt")
+    path = checkpoint_path(directory, step)
+    directory = os.path.dirname(path)
+    os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp"
     torch.save(trainer_state, tmp)
     os.replace(tmp, path)
@@ -34,6 +34,12 @@ def save_checkpoint(directory: str, trainer_state: dict,
                   "w") as f:
             json.dump(metadata, f, indent=2, default=str)
     return path
+
+
+def checkpoint_path(directory: str, step: int) -> str:
+    """Where ``save_checkpoint`` writes the checkpoint of update count
+    ``step``."""
+    return os.path.join(os.path.abspath(directory), f"step_{int(step):08d}.pt")
 
 
 def latest_checkpoint(directory: str) -> str | None:

@@ -19,7 +19,7 @@ def _root_bench():
 
 
 @pytest.mark.parametrize("kw", [
-    {}, {"variant": "tc"}, {"variant": "mim"}, {"batch": 2048},
+    {}, {"variant": "tc"}, {"variant": "mim"}, {"batch": 2048}, {"batch": 512},
     {"z_dim": 64, "size": 64, "in_ch": 3},
     {"z_dim": 64, "size": 64, "in_ch": 3, "variant": "mim"}])
 def test_flops_equal_the_root_bench(kw):
@@ -61,3 +61,41 @@ def test_rows64_are_the_root_bench_vae64_rows():
     np.testing.assert_array_equal(ds.images,
                                   rs.rand(8, 64, 64, 3).astype(np.float32))
     np.testing.assert_array_equal(ds.labels, rs.randint(0, 10, 8))
+
+
+@pytest.mark.parametrize("name", list(TB.ROWS28))
+def test_rows28_are_the_root_bench_perf_rows(name):
+    """``clear_28_bf16``, ``clear_28_fusedheads``, ``perf_mode_b2048_bf16``
+    and ``perf_mode_b512_bf16_fusedheads``: the root bench's batch, dtype,
+    fused heads and image count, the flagship trainer with them, and the
+    root bench's FLOPs at the row's batch."""
+    import torch
+
+    root = _root_bench()
+    cfg, flops_kw = root.EXTRA_CONFIGS[name]
+    batch, bf16, fused_heads, n_images = TB.ROWS28[name]
+    assert cfg.get("batch", root.BATCH) == batch == flops_kw.get("batch", 128)
+    assert (cfg.get("dtype") == "bf16") == bf16
+    assert cfg.get("fused_heads", False) == fused_heads
+    assert cfg.get("n_images", root.N_IMAGES) == n_images
+    assert TB.clear_vae_train_flops_per_image(batch=batch) == \
+        root.clear_vae_train_flops_per_image(**flops_kw)
+    t = TB.make_trainer(name, device="cpu")
+    assert t.model.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert t.model.fused_heads == fused_heads
+    assert (t.model.total_z_dim, t.contr_cfg.fused) == (16, True)
+
+
+def test_time_steps_rows_cycle_their_permutations():
+    """More steps than one permutation of the data holds (B = 2,048 on
+    8,192 images): the rows take further permutations; within one
+    permutation they are the batches that the timer took before."""
+    import numpy as np
+
+    rows = TB.batch_rows(12, 5, 4)
+    rs = np.random.RandomState(1)
+    want = np.concatenate([rs.permutation(12), rs.permutation(12)])[:20]
+    np.testing.assert_array_equal(rows, want.reshape(5, 4))
+    np.testing.assert_array_equal(
+        TB.batch_rows(12, 3, 4),
+        np.random.RandomState(1).permutation(12).reshape(3, 4))

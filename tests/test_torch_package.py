@@ -42,6 +42,8 @@ import clearvae_torch.experiments.demo
 import clearvae_torch.experiments.illustrate
 import clearvae_torch.experiments.mi_simulation
 import clearvae_torch.experiments.analyze
+import clearvae_torch.parallel, clearvae_torch.parallel.mesh
+import clearvae_torch.parallel.tp
 bad = sorted({m.split('.')[0] for m in sys.modules}
              & {'jax', 'jaxlib', 'flax', 'optax', 'clearvae_tpu'})
 print(','.join(bad))

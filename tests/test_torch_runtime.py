@@ -208,6 +208,56 @@ def test_second_process_fails_fast_and_names_the_holder(tmp_path,
     assert r.returncode == 0 and r.stdout.strip() == "True"
 
 
+def _card_child(tmp_path, card, hold=False):
+    """A process on card ``card`` (its UUID replaced by the card's name)
+    that asks for its card's lock in ``tmp_path``; with ``hold`` it prints
+    once it holds it and waits."""
+    code = ("import sys, time; sys.path.insert(0, sys.argv[2]); "
+            "from clearvae_torch.utils import lock; "
+            "lock._no_card = lambda: False; "
+            "lock._card_key = lambda i: 'card-%d' % i; "
+            "print(lock.acquire_gpu_lock(device='cuda:' + sys.argv[1]), "
+            "flush=True); "
+            + ("time.sleep(60)" if hold else ""))
+    args = [sys.executable, "-c", code, str(card), REPO]
+    env = {k: v for k, v in os.environ.items() if k != "CLEARVAE_TORCH_NO_LOCK"}
+    env["TMPDIR"] = str(tmp_path)
+    if hold:
+        return subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
+                                text=True)
+    return subprocess.run(args, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_the_lock_is_one_per_card(tmp_path):
+    """Ranks on different cards each take their own card's lock; a second
+    process on a card is refused, naming the holder."""
+    holder = _card_child(tmp_path, 0, hold=True)
+    try:
+        assert holder.stdout.readline().strip() == "True"
+        other = _card_child(tmp_path, 1)
+        assert other.returncode == 0 and other.stdout.strip() == "True"
+        same = _card_child(tmp_path, 0)
+        assert same.returncode != 0
+        assert "another GPU process holds" in same.stderr
+        assert f"'pid': {holder.pid}" in same.stderr
+        assert sorted(os.listdir(tmp_path)) == ["clearvae_torch-card-0.lock",
+                                                "clearvae_torch-card-1.lock"]
+    finally:
+        holder.kill()
+        holder.wait()
+
+
+def test_lock_path_names_the_card(monkeypatch):
+    monkeypatch.setattr(L, "_card_key", lambda i: f"GPU-{i}")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert L.lock_path("cuda:1").endswith("clearvae_torch-GPU-1.lock")
+    assert L.lock_path().endswith("clearvae_torch-GPU-3.lock")
+    # a CPU device takes no lock
+    monkeypatch.setattr(L, "_no_card", lambda: False)
+    assert L.acquire_gpu_lock(device="cpu") is False and not L._held
+
+
 def test_lock_skips_without_a_card_and_with_the_escape_hatch(tmp_path,
                                                             monkeypatch):
     path = str(tmp_path / "gpu.lock")
@@ -217,7 +267,7 @@ def test_lock_skips_without_a_card_and_with_the_escape_hatch(tmp_path,
     monkeypatch.setenv("CLEARVAE_TORCH_NO_LOCK", "1")
     monkeypatch.setattr(L, "_no_card", lambda: False)
     assert L.acquire_gpu_lock(path=path) is False
-    assert not os.path.exists(path) and L._held_fd is None
+    assert not os.path.exists(path) and not L._held
 
 
 # ---------------------------------------------------------------------------
