@@ -30,12 +30,11 @@ by ``time_steps``, the port's one step timer
 eager and graphed steps in turns on the same batches.
 
 Under a launched multi-rank job (``WORLD_SIZE`` > 1, as torchrun sets it)
-every 28×28 row runs on a data mesh over the job's cards (NCCL; the root
-bench shards over a data mesh when it sees more than one device), each
-rank on its block of every global batch; images/sec count the global
-batch, the FLOP share is against the peaks of all the cards, and rank 0
-prints. The 64×64 rows are left out there: VAE64 is not ported under a
-mesh (its factories raise for one).
+every row, the 64×64 ones included, runs on a data mesh over the job's
+cards (NCCL; the root bench shards every row over a data mesh when it sees
+more than one device), each rank on its block of every global batch;
+images/sec count the global batch, the FLOP share is against the peaks of
+all the cards (``job_rows``), and rank 0 prints.
 
 Prints one JSON line: per row and mode, images/sec and the FLOP share per
 turn (the analytic training FLOPs a second over the card's fp32 peak; TF32
@@ -134,6 +133,23 @@ ROWS28 = {"clear_28_bf16": (128, True, False, 4096),
 # bench.py's 64×64 rows: (batch, bfloat16 conv stacks)
 ROWS64 = {"vae64_clear": (128, False), "vae64_bf16_b256": (256, True)}
 SHAPE64 = dict(z_dim=64, size=64, in_ch=3)
+
+
+def job_rows(world: int = 1) -> dict:
+    """{row: (batch, analytic training FLOPs an image, the peak its FLOP
+    share is against)} of every row a job of ``world`` cards runs: the same
+    rows alone and on a data mesh (as the root bench runs them), each
+    against the peak of all the job's cards, bf16's for a bfloat16 row."""
+    rows = {kind: (BATCH, clear_vae_train_flops_per_image(variant=kind),
+                   world * PEAK_FP32_FLOPS) for kind in ROWS}
+    for kind, (batch, bf16, _, _) in ROWS28.items():
+        rows[kind] = (batch, clear_vae_train_flops_per_image(batch=batch),
+                      world * (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+    for kind, (batch, bf16) in ROWS64.items():
+        rows[kind] = (batch,
+                      clear_vae_train_flops_per_image(batch=batch, **SHAPE64),
+                      world * (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS))
+    return rows
 
 
 def make_trainer(kind: str, device: str | None = "cuda", mesh=None):
@@ -362,25 +378,19 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[:1]
-    configs = {}
-    for kind in ROWS:
-        flops = clear_vae_train_flops_per_image(variant=kind)
-        configs[kind] = row_stats(make_trainer(kind, **on), ds,
-                                  args.steps, flops, world * PEAK_FP32_FLOPS)
-    data = {}
-    for kind, (batch, bf16, _, n_images) in ROWS28.items():
-        if n_images not in data:
-            data[n_images] = data28(n_images, dev)
-        flops = clear_vae_train_flops_per_image(batch=batch)
-        peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
-        configs[kind] = row_stats(make_trainer(kind, **on), data[n_images],
-                                  args.steps, flops, world * peak, batch)
-    for kind, (batch, bf16) in ({} if mesh is not None else ROWS64).items():
-        flops = clear_vae_train_flops_per_image(batch=batch, **SHAPE64)
-        configs[kind] = row_stats(
-            make_trainer(kind, **on), data64(args.steps * batch),
-            args.steps, flops,
-            world * (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS), batch)
+    data, configs = {}, {}
+    for kind, (batch, flops, peak) in job_rows(world).items():
+        if kind in ROWS:
+            rows_ds = ds
+        elif kind in ROWS28:
+            n_images = ROWS28[kind][3]
+            if n_images not in data:
+                data[n_images] = data28(n_images, dev)
+            rows_ds = data[n_images]
+        else:
+            rows_ds = data64(args.steps * batch)
+        configs[kind] = row_stats(make_trainer(kind, **on), rows_ds,
+                                  args.steps, flops, peak, batch)
     if mesh is None or torch.distributed.get_rank() == 0:
         print(json.dumps({
             "metric": "images_per_sec", "batch": BATCH, "z_dim": Z_DIM,

@@ -18,10 +18,9 @@ so that one optimizer serves the eager step and the captured one (``fit``'s
 default) with the same kernels; torch's default Adam on the CPU.
 
 ``mesh`` (``parallel.mesh.make_mesh`` or ``parallel.tp.make_mesh2d``)
-goes to the VAE trainers, as in the JAX factories; the device is then the
-rank's (``parallel.mesh.mesh_device``) unless ``device`` is given. The CNN
-and LAM trainers and the VAE trainers on ``VAE64`` are not ported under a
-mesh and raise for one.
+goes to every trainer, as in the JAX factories, whatever the architecture;
+the device is then the rank's (``parallel.mesh.mesh_device``) unless
+``device`` is given.
 """
 
 from __future__ import annotations
@@ -54,29 +53,15 @@ def _adam(lr: float, device, mesh=None):
     return adam(lr, resolve_device(device))
 
 
-def _no_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{name} does not run under a mesh in the "
-                                  f"port yet (the 28×28 VAE trainers do)")
-
-
-def _vae(vae_arch: str, mesh, **kw):
-    """The ``vae_arch`` model, refused under a mesh unless it is the 28×28
-    ``VAE``."""
-    if vae_arch != "VAE":
-        _no_mesh(mesh, f"vae_arch={vae_arch!r}")
-    return MODELS[vae_arch](**kw)
-
-
 def get_cnn_trainer(n_class, cnn_arch: str = "SimpleCNNClassifier",
                     in_channel: int = 1, verbose_period: int = 5,
                     seed: int = 0, device=None, mesh=None,
                     **_) -> SimpleCNNTrainer:
     """reference trainer_utils.py:21-34 (Adam lr 1e-4)."""
-    _no_mesh(mesh, "get_cnn_trainer")
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
-    return SimpleCNNTrainer(cnn, _adam(1e-4, device), verbose_period, seed, device)
+    return SimpleCNNTrainer(cnn, _adam(1e-4, device, mesh), verbose_period,
+                            seed, device, mesh)
 
 
 def get_lamcnn_trainer(n_class, lam_coef, cnn_arch: str = "LAMCNNClassifier",
@@ -84,11 +69,11 @@ def get_lamcnn_trainer(n_class, lam_coef, cnn_arch: str = "LAMCNNClassifier",
                        seed: int = 0, device=None, mesh=None,
                        **_) -> LAMCNNTrainer:
     """reference trainer_utils.py:37-56 (Adam lr 1e-4)."""
-    _no_mesh(mesh, "get_lamcnn_trainer")
     cnn = _seeded(seed, lambda: MODELS[cnn_arch](n_class=n_class,
                                                  in_channel=in_channel))
-    return LAMCNNTrainer(cnn, _adam(1e-4, device), {"lam_coef": lam_coef},
-                         verbose_period, seed, device)
+    return LAMCNNTrainer(cnn, _adam(1e-4, device, mesh),
+                         {"lam_coef": lam_coef}, verbose_period, seed, device,
+                         mesh)
 
 
 def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
@@ -99,9 +84,9 @@ def get_hierarchical_vae_trainer(beta, vae_lr, z_dim, group_mode,
                                  mig_backend: str = "auto", device=None,
                                  mesh=None, **_) -> HierarchicalVAETrainer:
     """reference trainer_utils.py:59-84."""
-    vae = _seeded(seed, lambda: _vae(
-        vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
-        group_mode=group_mode, n_classes=n_classes, **(vae_kwargs or {})))
+    vae = _seeded(seed, lambda: MODELS[vae_arch](
+        total_z_dim=z_dim, in_channel=in_channel, group_mode=group_mode,
+        n_classes=n_classes, **(vae_kwargs or {})))
     return HierarchicalVAETrainer(
         vae, _adam(vae_lr, device, mesh),
         hyperparameter={"beta": beta, "scale": 1, "loc": 0},
@@ -118,9 +103,8 @@ def get_clearvae_trainer(beta, ps, vae_lr, z_dim, alpha, temperature,
                          hyperparameter: dict | None = None,
                          device=None, mesh=None, **_) -> CLEARVAETrainer:
     """reference trainer_utils.py:87-116, Adam(``vae_lr``)."""
-    vae = _seeded(seed, lambda: _vae(
-        vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
-        **(vae_kwargs or {})))
+    vae = _seeded(seed, lambda: MODELS[vae_arch](
+        total_z_dim=z_dim, in_channel=in_channel, **(vae_kwargs or {})))
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "ps": ps,
           "loc": 0, "scale": 1, **(hyperparameter or {})}
     return CLEARVAETrainer(
@@ -138,8 +122,8 @@ def get_cleartcvae_trainer(beta, la, vae_lr, factor_cls_lr, z_dim, alpha,
                            device=None, mesh=None, **_) -> ClearTCVAETrainer:
     """reference trainer_utils.py:119-157."""
     vae, factor_cls = _seeded(seed, lambda: (
-        _vae(vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
-             **(vae_kwargs or {})),
+        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
+                         **(vae_kwargs or {})),
         FactorCls(z_dim=z_dim)))
     hp = {"temperature": temperature, "alpha": alpha, "beta": beta, "loc": 0,
           "scale": 1, "lambda": la, **(hyperparameter or {})}
@@ -163,8 +147,8 @@ def get_clearmimvae_trainer(beta, mi_estimator: str, la, vae_lr,
     """reference trainer_utils.py:160-201 (estimator sized
     x_dim=y_dim=z_dim//2, hidden=z_dim)."""
     vae, est = _seeded(seed, lambda: (
-        _vae(vae_arch, mesh, total_z_dim=z_dim, in_channel=in_channel,
-             **(vae_kwargs or {})),
+        MODELS[vae_arch](total_z_dim=z_dim, in_channel=in_channel,
+                         **(vae_kwargs or {})),
         MI_ESTIMATORS[mi_estimator](x_dim=z_dim // 2, y_dim=z_dim // 2,
                                     hidden_size=z_dim)))
     hp = {"temperature": temperature, "beta": beta, "loc": 0, "scale": 1,

@@ -25,11 +25,12 @@ negatives, ``inner``, one [B, z] normal per estimator update); the two
 uniform [B] draws of the LAM-CNN step's stratified shuffle. The CNN step
 draws nothing.
 
-The VAE steps take a ``shard`` (``parallel.mesh.Shard``; the single
-device's identity ``Shard()`` by default). Under a data mesh a step is
-called with this rank's rows of ``x`` and the global batch's ``label`` and
-noise; it slices the noise of its rows, runs the batch-coupling terms on
-gathered latents, backpropagates its share of the global loss, sums the
+The VAE and CNN train steps take a ``shard`` (``parallel.mesh.Shard``;
+the single device's identity ``Shard()`` by default). Under a data mesh a
+step is called with this rank's rows of ``x`` and the global batch's
+``label`` and noise; it slices the noise of its rows, runs the
+batch-coupling terms on gathered latents (LAM's shuffle on the gathered
+images), backpropagates its share of the global loss, sums the
 gradients over the data axis before each optimizer update, and returns the
 global metrics, equal on every rank (``parallel/mesh.py`` states the
 invariant). The epoch runners hand each rank its rows.
@@ -492,33 +493,34 @@ def make_clear_mim_eval_step(model, mi_estimator, contrastive_cfg,
 
 class CNNStep(_Counted):
     """``step(x, label, noise)``: one Adam step of the cross-entropy, BN in
-    train mode; ``noise`` is unused (None)."""
+    train mode; ``noise`` is unused (None). Under a mesh the cross-entropy
+    is this rank's share of the global batch's mean."""
 
-    def __init__(self, model, optimizer):
+    def __init__(self, model, optimizer, shard=None):
         self.model, self.optimizer = model, optimizer
-        self._init_count(model)
+        self._init_count(model, shard)
 
     def __call__(self, x, label, noise=None):
+        sh = self.shard
         self.optimizer.zero_grad(set_to_none=True)
-        loss = _ce(self.model(x, train=True), label)
+        loss = sh.row_share(_ce(self.model(x, train=True), sh.rows(label)),
+                            x.shape[0], label.shape[0])
         loss.backward()
-        self.optimizer.step()
+        sh.step(self.optimizer, self.model)
         self.count.add_(1)
-        return {"loss": loss.detach()}
+        return sh.total({"loss": loss.detach()})
 
 
-def make_cnn_step(model, optimizer) -> CNNStep:
-    return CNNStep(model, optimizer)
+def make_cnn_step(model, optimizer, shard=None) -> CNNStep:
+    return CNNStep(model, optimizer, shard)
 
 
-def stratified_shuffle(x: torch.Tensor, label: torch.Tensor,
-                       u: torch.Tensor) -> torch.Tensor:
-    """ss_pairing: x with its rows shuffled within each label stratum
-    (reference LAMCNNTrainer.ss_pairing, trainer.py:249-257), by the JAX
-    package's double sort (steps.py:490-501): with ``u`` = (u1, u2), two
+def stratified_perm(label: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The permutation of ``stratified_shuffle``: with ``u`` = (u1, u2), two
     uniform [B] draws, s1 and s2 order the rows by (label, u1) and (label,
     u2), each by two stable sorts (np.lexsort's order, ties by index), and
-    row s1[i] takes row s2[i]. No host synchronisation: capturable."""
+    row s1[i] takes row s2[i] (the JAX package's double sort,
+    steps.py:490-501). No host synchronisation: capturable."""
 
     def by_label_then(key):
         o = torch.sort(key, stable=True).indices
@@ -527,7 +529,15 @@ def stratified_shuffle(x: torch.Tensor, label: torch.Tensor,
     s1, s2 = by_label_then(u[0]), by_label_then(u[1])
     perm = torch.empty_like(s2)
     perm[s1] = s2
-    return x[perm]
+    return perm
+
+
+def stratified_shuffle(x: torch.Tensor, label: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """ss_pairing: x with its rows shuffled within each label stratum
+    (reference LAMCNNTrainer.ss_pairing, trainer.py:249-257), by
+    ``stratified_perm``."""
+    return x[stratified_perm(label, u)]
 
 
 class LAMCNNStep(_Counted):
@@ -538,27 +548,39 @@ class LAMCNNStep(_Counted):
     step only the logits pass moves the BatchNorm running statistics: the
     features of x are that pass's trunk output (the JAX step computes them
     again, with the same values), and x̃'s pass normalizes by its own batch
-    statistics with ``update_stats=False``."""
+    statistics with ``update_stats=False``.
 
-    def __init__(self, model, optimizer, lam_coef: float):
+    Under a mesh the shuffle is the global batch's, as JAX's sort of the
+    sharded batch is: every rank computes the one permutation of the
+    global labels and uniforms, gathers the batch's images over ``data``
+    and takes its own rows of the shuffled batch, so a row's partner may
+    lie on another rank; x̃'s BatchNorm statistics are then the global
+    x̃'s, and both losses, means over the batch, enter as row shares."""
+
+    def __init__(self, model, optimizer, lam_coef: float, shard=None):
         self.model, self.optimizer, self.lam_coef = model, optimizer, lam_coef
-        self._init_count(model)
+        self._init_count(model, shard)
 
     def __call__(self, x, label, noise):
+        sh = self.shard
+        n, b = label.shape[0], x.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
-        x_tilde = stratified_shuffle(x, label, noise)
+        x_tilde = sh.gather(x, n)[sh.rows(stratified_perm(label, noise))]
+        own = sh.rows(label)
         feats = self.model.features(x, train=True)
         feats_t = self.model.features(x_tilde, train=True, update_stats=False)
-        ce = _ce(self.model.head(feats, train=True), label)
-        lam = L.lam_loss(feats, feats_t, label, lam_head_weight(self.model))
+        ce = sh.row_share(_ce(self.model.head(feats, train=True), own), b, n)
+        lam = sh.row_share(L.lam_loss(feats, feats_t, own,
+                                      lam_head_weight(self.model)), b, n)
         (ce + self.lam_coef * lam).backward()
-        self.optimizer.step()
+        sh.step(self.optimizer, self.model)
         self.count.add_(1)
-        return {"ce_loss": ce.detach(), "lam_loss": lam.detach()}
+        return sh.total({"ce_loss": ce.detach(), "lam_loss": lam.detach()})
 
 
-def make_lam_cnn_step(model, optimizer, lam_coef: float) -> LAMCNNStep:
-    return LAMCNNStep(model, optimizer, lam_coef)
+def make_lam_cnn_step(model, optimizer, lam_coef: float,
+                      shard=None) -> LAMCNNStep:
+    return LAMCNNStep(model, optimizer, lam_coef, shard)
 
 
 def make_cnn_logits_fn(model):

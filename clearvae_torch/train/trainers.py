@@ -20,7 +20,8 @@ generator's included, so that a resumed ``fit(start_epoch=k)`` reproduces
 the uninterrupted run.
 
 Under a device mesh (``mesh=``, ``parallel.mesh.make_mesh`` or
-``parallel.tp.make_mesh2d``; the VAE trainers) each rank of a
+``parallel.tp.make_mesh2d``; every trainer but the probe, whose JAX
+counterpart takes none, on 28×28 and 64×64 models alike) each rank of a
 ``torch.distributed`` job runs its trainer on its own device (its card,
 ``cuda:{LOCAL_RANK}``, or the CPU on a gloo mesh) with the whole dataset
 resident: every rank draws the same permutations and noise, steps on its
@@ -687,10 +688,12 @@ class SimpleCNNTrainer(TrainerCore):
     style→encode pattern)."""
 
     def __init__(self, model, optimizer, verbose_period: int = 5,
-                 seed: int = 0, device=None):
-        super().__init__(model, verbose_period, seed, device)
-        self.optimizer = optimizer(self.model.parameters())
-        self.train_step = S.make_cnn_step(self.model, self.optimizer)
+                 seed: int = 0, device=None, mesh=None):
+        super().__init__(model, verbose_period, seed, device, mesh)
+        self._place(self.model)
+        self.optimizer = optimizer(self.shard.parameters(self.model))
+        self.train_step = S.make_cnn_step(self.model, self.optimizer,
+                                          self.shard)
         self.logits_fn = S.make_cnn_logits_fn(self.model)
 
     def _train_noise(self, n: int, out=None):
@@ -700,13 +703,16 @@ class SimpleCNNTrainer(TrainerCore):
                        use_scan=True):
         (aupr, auroc), acc = self.evaluate(valid_ds, batch_size,
                                            style_on_device=style_on_device)
-        print("val_aupr:", aupr, "val_auroc:", auroc, "val_acc:",
-              round(acc, 3))
+        if self.shard.leader:
+            print("val_aupr:", aupr, "val_auroc:", auroc, "val_acc:",
+                  round(acc, 3))
 
     def evaluate(self, ds, batch_size: int = 128,
                  style_on_device: bool = False):
         """((per-class AUPR, per-class AUROC), accuracy) — reference
-        trainer.py:215-232."""
+        trainer.py:215-232. Under a mesh every rank computes all the
+        logits with its whole copy of the weights, as JAX's ``evaluate``
+        does: eval mode takes no collective."""
         y = self._labels(ds)
         if style_on_device:
             if not hasattr(ds, "chunked_apply"):
@@ -729,13 +735,17 @@ class LAMCNNTrainer(SimpleCNNTrainer):
     trainer.py:235-288): ``hyperparameter["lam_coef"]`` weighs it. Each
     step's stratified shuffle takes two uniform [B] draws from the
     trainer's generator, made outside the captured step as the VAEs' noise
-    is. The history holds ``ce_loss`` and ``lam_loss``."""
+    is. The history holds ``ce_loss`` and ``lam_loss``. Under a mesh every
+    rank draws the global batch's uniforms and the step shuffles the
+    global batch (``S.LAMCNNStep``)."""
 
     def __init__(self, model, optimizer, hyperparameter: dict,
-                 verbose_period: int = 5, seed: int = 0, device=None):
-        super().__init__(model, optimizer, verbose_period, seed, device)
+                 verbose_period: int = 5, seed: int = 0, device=None,
+                 mesh=None):
+        super().__init__(model, optimizer, verbose_period, seed, device, mesh)
         self.train_step = S.make_lam_cnn_step(self.model, self.optimizer,
-                                              hyperparameter["lam_coef"])
+                                              hyperparameter["lam_coef"],
+                                              self.shard)
 
     def _train_noise(self, n: int, out=None):
         if out is None:

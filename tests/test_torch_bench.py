@@ -1,13 +1,25 @@
 """The port's throughput bench (``clearvae_torch/bench.py``): its copy of
-the analytic FLOP count equals the repository bench's, and it refuses to
-measure without a card."""
+the analytic FLOP count equals the repository bench's, its rows are the
+root bench's, a launched job runs all of them, and it refuses to measure
+without a card."""
 
 import importlib.util
 import os
 
 import pytest
+import torch
 
 from clearvae_torch import bench as TB
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _root_bench():
@@ -84,6 +96,24 @@ def test_rows28_are_the_root_bench_perf_rows(name):
     assert t.model.dtype == (torch.bfloat16 if bf16 else torch.float32)
     assert t.model.fused_heads == fused_heads
     assert (t.model.total_z_dim, t.contr_cfg.fused) == (16, True)
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_a_launched_job_runs_every_row(world):
+    """A job of ``world`` cards (``WORLD_SIZE``, as torchrun sets it) runs
+    every row, the 64×64 ones included, as the root bench shards them all
+    over a data mesh: the same batches and FLOPs as one card, against the
+    peak of all the job's cards."""
+    rows, one = TB.job_rows(world), TB.job_rows()
+    assert list(rows) == [*TB.ROWS, *TB.ROWS28, *TB.ROWS64]
+    for kind, (batch, flops, peak) in rows.items():
+        assert (batch, flops) == one[kind][:2]
+        assert peak == world * one[kind][2]
+    for kind, (batch, bf16) in TB.ROWS64.items():
+        assert rows[kind] == (
+            batch, TB.clear_vae_train_flops_per_image(batch=batch,
+                                                      **TB.SHAPE64),
+            world * (TB.PEAK_BF16_FLOPS if bf16 else TB.PEAK_FP32_FLOPS))
 
 
 def test_time_steps_rows_cycle_their_permutations():

@@ -35,6 +35,16 @@ INDEXING = {aten.index, aten.index_put, aten.index_put_,
             aten._index_put_impl_}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class HostReads(TorchDispatchMode):
     """Records the data-dependent operations and host-made tensors that run
     under it, outside ``paused()``."""

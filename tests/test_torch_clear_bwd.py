@@ -16,6 +16,16 @@ from clearvae_torch.ops.kernels import _build
 from clearvae_torch.ops.kernels import fused_loss as FL
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _latents(b, z, seed):
     rs = np.random.RandomState(seed)
     mats = [(rs.randn(b, z) * s).astype(np.float32) for s in (1, .3, 1, .3)]

@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from clearvae_tpu.models.cnn import SimpleCNN as JCNN
@@ -20,6 +21,16 @@ from clearvae_torch.train import steps as TS
 from clearvae_torch.train.factories import get_cnn_trainer
 
 B = 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(t):

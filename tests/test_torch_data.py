@@ -22,6 +22,16 @@ from clearvae_torch.ops import corruptions as TC
 from clearvae_torch.ops.kernels import style as K3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def images():
     return JM.synthetic_mnist(24, seed=5)

@@ -5,6 +5,7 @@ every k-style split disjoint in (content, style)."""
 
 import numpy as np
 import pytest
+import torch
 
 from clearvae_tpu.data import camelyon17 as JCAM
 from clearvae_tpu.data import celeba as JCEL
@@ -38,6 +39,16 @@ SETS = {
     "chexpert": (JCHX.synthetic_chexpert, TCHX.synthetic_chexpert, 4, 6,
                  None, None),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _equal(a, b):

@@ -25,6 +25,16 @@ from clearvae_torch.train.factories import get_clearvae_trainer
 HP = dict(beta=1 / 8, ps=True, alpha=100.0, temperature=0.1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _splits(mod, n_train, n_eval, seed):
     """A styled dataset cut into train/held-out halves that keep their
     absolute sample ids (the styling keys)."""

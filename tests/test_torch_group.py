@@ -33,6 +33,16 @@ LABEL = np.array([0, 1, 0, 2, 1, 0, 2, 3])
 EPS = rs.randn(8, 4).astype(np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(t):
     return jax.tree.map(np.asarray, t)
 

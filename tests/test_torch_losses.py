@@ -15,6 +15,16 @@ from clearvae_torch.ops.schedules import logistic_anneal as t_anneal
 VAL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grad_close(got, ref):
     scale = max(float(np.nanmax(np.abs(ref))), 1.0)
     np.testing.assert_allclose(got, ref, atol=1e-5 * scale, rtol=1e-4)

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from clearvae_tpu.experiments import common as JC
 from clearvae_tpu.experiments import mig_expr as JX
@@ -25,6 +26,16 @@ MODELS = ["clear-ps", "clear-neg", "bvae", "clear-tc", "clear-mim (L1OutUB)",
 # 17-digit floats one ulp off; see test_resume_reads_floats_exactly)
 RESUMED = ("model,beta,mig,elbo\na,0.125,0.0123,101.5\n"
            "b (c),0.125,-0.004,99.25\nd,0.125,0.5,100.0\n")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _scripted_cell(calls):

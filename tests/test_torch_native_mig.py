@@ -19,6 +19,16 @@ from clearvae_torch.train import trainers as TR
 TOL = dict(rtol=1e-3, atol=1e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _needs_gxx():
     if shutil.which("g++") is None:

@@ -44,6 +44,22 @@ TWO_PLAYER = {
                                             mi_estimator_lr=2e-3)),
 }
 GROUPS = ("GVAE", "MLVAE")
+CNN_CLASSES = {"cnn": 10, "lam": 5}  # LAM's 5: its head stays whole on 2 × 2
+LAM_COEF = 0.5
+B64, Z64 = 8, 64            # the VAE64 cases' batch and z
+V64_FACTORIES = {
+    "clear": ("get_clearvae_trainer", dict(ps=True, alpha=100.0,
+                                           temperature=0.1)),
+    "gvae": ("get_hierarchical_vae_trainer", dict(group_mode="GVAE")),
+    "tc": ("get_cleartcvae_trainer", dict(la=1.0, factor_cls_lr=1e-4,
+                                          alpha=100.0, temperature=0.1)),
+    "mim": ("get_clearmimvae_trainer", dict(mi_estimator="CLUBSample", la=3.0,
+                                            mi_estimator_lr=2e-3, alpha=100.0,
+                                            temperature=0.1)),
+    "clear_bf16": ("get_clearvae_trainer", dict(
+        ps=True, alpha=100.0, temperature=0.1,
+        vae_kwargs={"dtype": torch.bfloat16, "fused_heads": True})),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -51,12 +67,12 @@ GROUPS = ("GVAE", "MLVAE")
 # ---------------------------------------------------------------------------
 
 
-def _tiny_ds(n=N_FIT, seed=3):
+def _tiny_ds(n=N_FIT, seed=3, n_class=10):
     from clearvae_torch.data.common import ArrayDataset
 
     rs = np.random.RandomState(seed)
     return ArrayDataset(rs.rand(n, 28, 28, 1).astype(np.float32),
-                        rs.randint(0, 10, n), np.zeros(n, np.int64))
+                        rs.randint(0, n_class, n), np.zeros(n, np.int64))
 
 
 def _styled_ds():
@@ -70,20 +86,11 @@ def _state(module) -> dict:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def _clear_step(inp, mesh, steps=1):
-    """The CLEAR step (unfused, as in tests/test_parallel.py's setup) from
-    the bridged JAX init, ``steps`` times on ``inp``'s batch with the
-    noise of each step; returns its metrics, state and the gradients that
-    the first update saw."""
-    from clearvae_torch.config import AnnealConfig, ContrastiveConfig
-    from clearvae_torch.models.vae import VAE
-    from clearvae_torch.parallel.mesh import place_state
-    from clearvae_torch.train.steps import make_clear_vae_step
-
-    model = VAE(total_z_dim=16)
-    model.load_state_dict(inp["sd"])
-    shard = place_state(mesh, model)
-    opt = torch.optim.Adam(shard.parameters(model), lr=5e-4)
+def _recording_adam(params, lr):
+    """Adam whose first update records the gradients it applies (under a
+    mesh: summed over the data axis); returns it and the list they go
+    to."""
+    opt = torch.optim.Adam(params, lr=lr)
     grads = []
     update = opt.step
 
@@ -92,26 +99,89 @@ def _clear_step(inp, mesh, steps=1):
             grads.append([p.grad.clone() for p in opt.param_groups[0]["params"]])
         update()
     opt.step = step_and_record
+    return opt, grads
+
+
+def _clear_step(inp, mesh, steps=1, v64=False):
+    """The CLEAR step (unfused, as in tests/test_parallel.py's setup) from
+    the bridged JAX init, ``steps`` times on ``inp``'s batch with the
+    noise of each step; returns its metrics, state and the gradients that
+    the first update saw. ``v64``: VAE64 at z = 64 on the B = 8 batch of
+    64×64×3 images."""
+    from clearvae_torch.config import AnnealConfig, ContrastiveConfig
+    from clearvae_torch.models.vae import VAE, VAE64
+    from clearvae_torch.parallel.mesh import place_state
+    from clearvae_torch.train.steps import make_clear_vae_step
+
+    pre = "v64_" if v64 else ""
+    model = VAE64(total_z_dim=Z64) if v64 else VAE(total_z_dim=16)
+    model.load_state_dict(inp[pre + "sd"])
+    shard = place_state(mesh, model)
+    opt, grads = _recording_adam(shard.parameters(model), 5e-4)
     step = make_clear_vae_step(model, opt, AnnealConfig(),
                                ContrastiveConfig(alpha=100.0), shard)
-    eps = inp["eps"] if steps == 1 else inp["eps3"]
+    eps = inp[pre + "eps"] if steps == 1 else inp["eps3"]
     for i in range(steps):
-        m = step(shard.rows(inp["x"]), inp["label"],
+        m = step(shard.rows(inp[pre + "x"]), inp[pre + "label"],
                  eps if steps == 1 else eps[i])
     return {"metrics": {k: float(v) for k, v in m.items()},
             "state": _state(model), "grads": grads[0]}
 
 
-def _fit(mesh, ds, epochs, bs=B_FIT, **fit_kw):
-    """A CLEAR trainer from its factory, fit as a user calls it; returns it
-    and its per-epoch histories."""
-    from clearvae_torch.train.factories import get_clearvae_trainer
+def _cnn_step(inp, mesh, kind):
+    """One CNN (``kind`` "cnn") or LAM-CNN ("lam") step from the bridged
+    JAX init on the B = 32 batch, Adam 1e-4 (the factories'), the LAM
+    shuffle on JAX's uniforms: its metrics, state, the gradients the update
+    saw and, for LAM, the x̃ rows that this rank's second trunk pass
+    took."""
+    from clearvae_torch.models.cnn import LAMCNN, SimpleCNN
+    from clearvae_torch.parallel.mesh import place_state
+    from clearvae_torch.train import steps as S
 
-    t = get_clearvae_trainer(**HP, device="cpu", mesh=mesh)
+    model = (LAMCNN if kind == "lam" else SimpleCNN)(n_class=CNN_CLASSES[kind])
+    model.load_state_dict(inp[f"{kind}_sd"])
+    shard = place_state(mesh, model)
+    opt, grads = _recording_adam(shard.parameters(model), 1e-4)
+    seen = []
+    if kind == "lam":
+        features = model.features
+
+        def features_seen(x, train=True, update_stats=True):
+            if not update_stats:
+                seen.append(x.detach().clone())
+            return features(x, train, update_stats)
+        model.features = features_seen
+        step, noise = S.make_lam_cnn_step(model, opt, LAM_COEF, shard), \
+            inp["lam_u"]
+    else:
+        step, noise = S.make_cnn_step(model, opt, shard), None
+    m = step(shard.rows(inp["cnn_x"]), inp[f"{kind}_label"], noise)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "state": _state(model), "grads": grads[0],
+            "x_tilde": seen[0] if seen else None}
+
+
+def _trainer(kind, mesh):
+    """The CLEAR ("clear"), CNN ("cnn") or LAM-CNN ("lam") trainer from its
+    factory, seed 0, on the CPU and ``mesh``."""
+    from clearvae_torch.train import factories as TF
+
+    if kind == "clear":
+        return TF.get_clearvae_trainer(**HP, device="cpu", mesh=mesh)
+    kw = dict(seed=0, verbose_period=10 ** 9, device="cpu", mesh=mesh)
+    if kind == "lam":
+        return TF.get_lamcnn_trainer(CNN_CLASSES["lam"], LAM_COEF, **kw)
+    return TF.get_cnn_trainer(CNN_CLASSES["cnn"], **kw)
+
+
+def _fit(mesh, ds, epochs, bs=B_FIT, kind="clear", **fit_kw):
+    """A trainer from its factory, fit as a user calls it; returns it and
+    its per-epoch histories of the loss (LAM's: the cross-entropy)."""
+    t = _trainer(kind, mesh)
     hist = []
     t._post_train_epoch = hist.append
     t.fit(epochs, ds, batch_size=bs, **fit_kw)
-    return t, [h["loss"] for h in hist]
+    return t, [h["ce_loss" if kind == "lam" else "loss"] for h in hist]
 
 
 def _fit_case(mesh, ds, epochs, bs=B_FIT, styled=False):
@@ -119,6 +189,17 @@ def _fit_case(mesh, ds, epochs, bs=B_FIT, styled=False):
     mig, mse = t.evaluate(ds, batch_size=bs, style_on_device=styled)
     return {"losses": np.stack(losses), "state": _state(t.model), "mse": mse,
             "mig": mig}
+
+
+def _cnn_fit_case(mesh, kind, styled=False, **fit_kw):
+    """A CNN or LAM-CNN trainer fit 2 epochs (on styled digits styled per
+    batch, or resident data) and evaluated: losses, state, accuracy."""
+    ds = _styled_ds() if styled else _tiny_ds(n_class=CNN_CLASSES[kind])
+    t, losses = _fit(mesh, ds, 2, kind=kind, style_on_device=styled,
+                     **fit_kw)
+    _, acc = t.evaluate(ds, batch_size=B_FIT, style_on_device=styled)
+    return {"losses": np.stack(losses), "state": _state(t.model), "acc": acc,
+            "graphs": len(t._graphs), "history": t.history}
 
 
 def _styled_eval(mesh):
@@ -156,15 +237,33 @@ def _group(mode, mesh, inp):
             "state": _state(t.model), "totals": totals}
 
 
-def _resume(mesh, tmp):
+def _v64_factory_step(name, mesh, inp):
+    """One step of a VAE64 trainer (z = 64, 64×64×3; CLEAR, CLEAR-TC and
+    CLEAR-MIM with the latent losses fused) from its factory on the B = 8
+    batch and its noise: the metrics and the updated 1-D leaves and latent
+    heads (the whole state is ~6 M floats a rank)."""
+    from clearvae_torch.train import factories as TF
+
+    factory, kw = V64_FACTORIES[name]
+    if name != "gvae":
+        kw = {**kw, "hyperparameter": {"fused": True}}
+    t = getattr(TF, factory)(beta=1 / 8, vae_lr=5e-4, z_dim=Z64,
+                             vae_arch="VAE64", in_channel=3, seed=0,
+                             device="cpu", mesh=mesh, **kw)
+    m = t.train_step(t.shard.rows(inp["v64_x"]), inp["v64_label"],
+                     inp[f"v64_noise_{name}"])
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "state": {k: v for k, v in _state(t.model).items()
+                      if v.ndim == 1 or "head" in k}}
+
+
+def _resume(mesh, tmp, kind="clear"):
     """An uninterrupted 3-epoch fit against 2 epochs, a checkpoint (rank 0
     writes it), a fresh trainer that restores it and runs the third."""
-    ds = _tiny_ds()
-    ref, _ = _fit(mesh, ds, 3)
-    _fit(mesh, ds, 2, checkpoint_dir=tmp, checkpoint_every=1)
-    from clearvae_torch.train.factories import get_clearvae_trainer
-
-    t2 = get_clearvae_trainer(**HP, device="cpu", mesh=mesh)
+    ds = _tiny_ds(n_class=CNN_CLASSES.get(kind, 10))
+    ref, _ = _fit(mesh, ds, 3, kind=kind)
+    _fit(mesh, ds, 2, kind=kind, checkpoint_dir=tmp, checkpoint_every=1)
+    t2 = _trainer(kind, mesh)
     t2.restore_checkpoint(tmp)
     t2.fit(1, ds, batch_size=B_FIT, start_epoch=2)
     return {"ref": _state(ref.model), "resumed": _state(t2.model),
@@ -205,7 +304,19 @@ def _rank_cases(inp, out_dir):
     res["tp_fit"] = _fit_case(mesh2, _tiny_ds(), 2)
     res["tp_moments"] = _moments(mesh2)
     res["ckpt_tp"] = _resume(mesh2, os.path.join(out_dir, "ck_tp"))
-    res["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for kind in CNN_CLASSES:
+        res[f"{kind}_step"] = _cnn_step(inp, mesh, kind)
+        res[f"{kind}_tp_step"] = _cnn_step(inp, mesh2, kind)
+    res["cnn_tp_graphed"] = _cnn_fit_case(mesh2, "cnn")
+    res["cnn_tp_eager"] = _cnn_fit_case(mesh2, "cnn", use_scan=False)
+    res["cnn_styled"] = _cnn_fit_case(mesh, "cnn", styled=True)
+    res["ckpt_lam_tp"] = _resume(mesh2, os.path.join(out_dir, "ck_lam"), "lam")
+    res["v64_step"] = _clear_step(inp, mesh, v64=True)
+    for name in V64_FACTORIES:
+        for tag, m in (("dp", mesh), ("tp", mesh2)):
+            res[f"v64_{name}_{tag}"] = _v64_factory_step(name, m, inp)
+    res["seconds"] = (t1 - t0, time.perf_counter() - t1)
     return res
 
 
@@ -263,41 +374,101 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _jax_inputs():
-    """The JAX package's CLEAR state on B = 32 (tests/test_parallel.py's
-    setup), the noise its step draws, and a function that runs its step on
-    JAX's meshes: make_mesh(4) and the 2 × 2 ``shard_state_tp`` mesh."""
+def _jax_vae(jm, size, ch, b, seed):
+    """A JAX VAE's init (adam 5e-4), a batch of ``b`` images of ``size``²
+    × ``ch`` with labels 0..9, the reparameterization noise JAX's step
+    draws from its key (recovered from one train-mode forward) and its
+    CLEAR step."""
     import jax
     import jax.numpy as jnp
     import optax
 
-    from clearvae_torch.bridge import params_from_flax
     from clearvae_tpu.config import AnnealConfig, ContrastiveConfig
-    from clearvae_tpu.models.vae import VAE
-    from clearvae_tpu.parallel.mesh import (make_mesh, replicate_state,
-                                            shard_batch)
-    from clearvae_tpu.parallel.tp import make_mesh2d, shard_state_tp
     from clearvae_tpu.train.steps import init_vae_state, make_clear_vae_step
 
-    jm = VAE(total_z_dim=16)
     tx = optax.adam(5e-4)
-    state = init_vae_state(jm, tx, jax.random.key(0), 28, 1)
-    rs = np.random.RandomState(0)
-    x = rs.rand(B, 28, 28, 1).astype(np.float32)
-    label = rs.randint(0, 10, B)
+    state = init_vae_state(jm, tx, jax.random.key(0), size, ch)
+    rs = np.random.RandomState(seed)
+    x = rs.rand(b, size, size, ch).astype(np.float32)
+    label = rs.randint(0, 10, b)
     key = jax.random.key(42)
     apply = jax.jit(lambda v, x, k: jm.apply(
         v, x, explicit=True, train=True, rngs={"reparam": k},
         mutable=["batch_stats"])[0])
     variables = {"params": state.params, "batch_stats": state.batch_stats}
     _, lp, z = apply(variables, jnp.asarray(x), key)
-    z = np.asarray(z)
-    eps = np.stack([(z[:, h * 8:(h + 1) * 8] - np.asarray(lp[m]))
+    z, h = np.asarray(z), z.shape[-1] // 2
+    eps = np.stack([(z[:, i * h:(i + 1) * h] - np.asarray(lp[m]))
                     / np.exp(0.5 * np.asarray(lp[v]))
-                    for h, (m, v) in enumerate((("mu_c", "logvar_c"),
+                    for i, (m, v) in enumerate((("mu_c", "logvar_c"),
                                                 ("mu_s", "logvar_s")))])
     step = make_clear_vae_step(jm, tx, AnnealConfig(),
                                ContrastiveConfig(alpha=100.0))
+    return state, x, label, eps.astype(np.float32), key, step
+
+
+def _jax_cnn(name, n_class, x, label, key, seed):
+    """A JAX CNN's init (running statistics drawn away from 0 and 1) and
+    its step (``make_cnn_step``, or ``make_lam_cnn_step`` with ``key``'s
+    shuffle) through ``optax.identity()``, whose update is the
+    gradient."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from clearvae_tpu.models import cnn as JC
+    from clearvae_tpu.train import steps as JS
+
+    jm = getattr(JC, name)(n_class=n_class, in_channel=1)
+    v = jax.jit(jm.init)({"params": jax.random.key(seed)},
+                         jnp.zeros((2, 28, 28, 1)))
+    rs = np.random.RandomState(seed)
+    stats = jax.tree.map(lambda a: (rs.rand(*a.shape) * 0.5 + 0.2)
+                         .astype(np.float32), v["batch_stats"])
+    tx = optax.identity()
+    state = JS.TrainState(params=v["params"], batch_stats=stats,
+                          opt_state=tx.init(v["params"]),
+                          step=jnp.zeros((), jnp.int32))
+    step = (JS.make_lam_cnn_step(jm, tx, LAM_COEF, JC.lam_head_weight)
+            if name == "LAMCNN" else JS.make_cnn_step(jm, tx))
+    return state, lambda mesh, place, xs, ls: step(place(mesh, state), xs, ls,
+                                                    key)
+
+
+def _jax_inputs():
+    """The JAX package's CLEAR state on B = 32 (tests/test_parallel.py's
+    setup), its VAE64 state on B = 8, its SimpleCNN and LAMCNN states on
+    the B = 32 batch, the noise and uniforms their steps draw, and a
+    function that runs their steps on JAX's meshes: make_mesh(4) for each,
+    and the 2 × 2 ``shard_state_tp`` mesh for CLEAR."""
+    import jax
+    import jax.numpy as jnp
+
+    from clearvae_torch.bridge import cnn_params_from_flax, params_from_flax
+    from clearvae_tpu.models.vae import VAE, VAE64
+    from clearvae_tpu.parallel.mesh import (make_mesh, replicate_state,
+                                            shard_batch)
+    from clearvae_tpu.parallel.tp import make_mesh2d, shard_state_tp
+
+    def np_tree(t):
+        return jax.tree.map(np.asarray, t)
+
+    state, x, label, eps, key, step = _jax_vae(VAE(total_z_dim=16), 28, 1,
+                                               B, 0)
+    s64, x64, l64, e64, k64, step64 = _jax_vae(VAE64(total_z_dim=Z64), 64, 3,
+                                               B64, 7)
+    rs = np.random.RandomState(8)
+    cnn_label = {k: rs.randint(0, n, B) for k, n in CNN_CLASSES.items()}
+    lam_key = jax.random.key(9)
+    cnns = {kind: _jax_cnn(name, CNN_CLASSES[kind], x, cnn_label[kind],
+                           lam_key, 1 + i)
+            for i, (kind, name) in enumerate((("cnn", "SimpleCNN"),
+                                              ("lam", "LAMCNN")))}
+
+    def vae_result(s, m):
+        return {"metrics": {k: float(v) for k, v in m.items()},
+                "state": params_from_flax(*np_tree((s.params,
+                                                    s.batch_stats)))}
 
     def mesh_steps():
         out = {}
@@ -305,16 +476,47 @@ def _jax_inputs():
                 ("jax_mesh", make_mesh(4), replicate_state),
                 ("jax_tp", make_mesh2d(2, 2), shard_state_tp)):
             xs, ls = shard_batch(mesh, jnp.asarray(x), jnp.asarray(label))
-            s4, m4 = step(place(mesh, state), xs, ls, key)
-            tree = jax.tree.map(np.asarray, (s4.params, s4.batch_stats))
-            out[name] = {"metrics": {k: float(v) for k, v in m4.items()},
-                         "state": params_from_flax(*tree)}
+            out[name] = vae_result(*step(place(mesh, state), xs, ls, key))
+        mesh = make_mesh(4)
+        xs, ls = shard_batch(mesh, jnp.asarray(x64), jnp.asarray(l64))
+        out["v64_jax_mesh"] = vae_result(*step64(
+            replicate_state(mesh, s64), xs, ls, k64))
+        for kind, (init, run) in cnns.items():
+            xs, ls = shard_batch(mesh, jnp.asarray(x),
+                                 jnp.asarray(cnn_label[kind]))
+            new, m = run(mesh, replicate_state, xs, ls)
+            grads = cnn_params_from_flax(
+                jax.tree.map(lambda a, p: np.asarray(a) - np.asarray(p),
+                             new.params, init.params),
+                np_tree(new.batch_stats))
+            out[f"{kind}_jax_mesh"] = {
+                "metrics": {k: float(v) for k, v in m.items()},
+                "grads": grads}
         return out
 
-    tree = jax.tree.map(np.asarray, (state.params, state.batch_stats))
-    return {"sd": params_from_flax(*tree),
-            "x": torch.as_tensor(x), "label": torch.as_tensor(label),
-            "eps": torch.as_tensor(eps.astype(np.float32))}, mesh_steps
+    def sd(s):
+        return params_from_flax(*np_tree((s.params, s.batch_stats)))
+
+    def cnn_sd(s):
+        return cnn_params_from_flax(*np_tree((s.params, s.batch_stats)))
+
+    t = torch.as_tensor
+    return {"sd": sd(state), "x": t(x), "label": t(label), "eps": t(eps),
+            "v64_sd": sd(s64), "v64_x": t(x64), "v64_label": t(l64),
+            "v64_eps": t(e64), "cnn_x": t(x),
+            "cnn_sd": cnn_sd(cnns["cnn"][0]), "lam_sd": cnn_sd(cnns["lam"][0]),
+            **{f"{k}_label": t(v) for k, v in cnn_label.items()},
+            "lam_u": t(_jax_uniforms(lam_key, B))}, mesh_steps
+
+
+def _jax_uniforms(key, n):
+    """The (u1, u2) that JAX's ``stratified_shuffle`` draws from ``key``
+    (tests/test_torch_lam.py)."""
+    import jax
+
+    k1, k2 = jax.random.split(key)
+    return np.stack([np.asarray(jax.random.uniform(k1, (n,))),
+                     np.asarray(jax.random.uniform(k2, (n,)))])
 
 
 def _noise_inputs():
@@ -323,11 +525,18 @@ def _noise_inputs():
     def normal(*shape):
         return torch.as_tensor(rs.randn(*shape).astype(np.float32))
 
+    eps64 = normal(2, B64, Z64 // 2)
     return {"eps3": normal(3, 2, B, 8),
             "noise_tc": (normal(2, 16, 8), normal(2, 16, 8)),
             "noise_mim": {"eps": normal(2, 16, 8),
                           "perm": torch.as_tensor(rs.permutation(16)),
-                          "inner": normal(5, 16, 16)}}
+                          "inner": normal(5, 16, 16)},
+            "v64_noise_clear": eps64, "v64_noise_clear_bf16": eps64,
+            "v64_noise_gvae": eps64,
+            "v64_noise_tc": (eps64, normal(2, B64, Z64 // 2)),
+            "v64_noise_mim": {"eps": eps64,
+                              "perm": torch.as_tensor(rs.permutation(B64)),
+                              "inner": normal(5, B64, Z64)}}
 
 
 def _references(inp):
@@ -341,6 +550,13 @@ def _references(inp):
         ref[kind] = _two_player(kind, None, inp)
     for mode in GROUPS:
         ref[mode] = _group(mode, None, inp)
+    for kind in CNN_CLASSES:
+        ref[f"{kind}_step"] = _cnn_step(inp, None, kind)
+    ref["cnn_fit"] = _cnn_fit_case(None, "cnn")
+    ref["cnn_styled"] = _cnn_fit_case(None, "cnn", styled=True)
+    ref["v64_step"] = _clear_step(inp, None, v64=True)
+    for name in V64_FACTORIES:
+        ref[f"v64_{name}"] = _v64_factory_step(name, None, inp)
     return ref
 
 
@@ -378,8 +594,9 @@ def job(tmp_path_factory):
         assert p.returncode == 0, (err.read_text() if err.exists() else log)
     ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
-    print(f"parallel job: {time.perf_counter() - t0:.1f} s in all, ranks "
-          f"{[round(r['seconds'], 1) for r in ranks]} s of cases")
+    print(f"parallel job: {time.perf_counter() - t0:.1f} s in all, ranks' "
+          f"cases {[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}"
+          f" s (VAE, then CNN and VAE64)")
     return ranks, ref, jax_mesh, inp
 
 
@@ -678,30 +895,204 @@ def test_make_mesh_needs_the_process_group():
         make_mesh2d(2, 2)
 
 
-@pytest.mark.parametrize("factory", [
-    "get_clearvae_trainer", "get_hierarchical_vae_trainer",
-    "get_cleartcvae_trainer", "get_clearmimvae_trainer"])
-def test_vae64_factories_refuse_a_mesh(factory):
-    """VAE64 is not ported under a mesh: each VAE factory refuses it there
-    (and ``bench.main`` leaves the 64×64 rows out on a mesh)."""
-    from clearvae_torch.train import factories as TF
-
-    kw = dict(beta=1 / 8, vae_lr=5e-4, z_dim=64, ps=True, alpha=100.0,
-              temperature=0.1, group_mode="GVAE", la=1.0, factor_cls_lr=1e-4,
-              mi_estimator="CLUBSample", mi_estimator_lr=2e-3)
-    with pytest.raises(NotImplementedError, match="VAE64.*mesh"):
-        getattr(TF, factory)(**kw, vae_arch="VAE64", in_channel=3,
-                             device="cpu", mesh=object())
+def _grads_close(got, want, scale):
+    """Gradients before the update at rtol 1e-5, with an atol of 1e-5 of
+    the model's largest gradient entry (``scale``): an analytically zero
+    gradient (the conv biases ahead of BatchNorm) is float noise."""
+    for k, w in want.items():
+        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5 * scale, err_msg=k)
 
 
-def test_cnn_factories_refuse_a_mesh():
-    from clearvae_torch.train import factories as TF
+@pytest.mark.parametrize("against", ["jax_mesh", "port_single"])
+@pytest.mark.parametrize("kind", list(CNN_CLASSES))
+def test_cnn_dp_step_matches(job, kind, against):
+    """The CNN and the LAM-CNN step on make_mesh(4) = JAX's
+    ``make_*_step`` on its make_mesh(4) (LAM on JAX's own uniforms) and =
+    the port's single device: the losses (rtol 1e-5), the gradients
+    before Adam, summed over the ranks, and the running statistics of the
+    global batch (rtol 1e-5, atol 1e-7)."""
+    ranks, ref, jax_mesh, _ = job
+    single = ref[f"{kind}_step"]
+    names = [k for k in single["state"] if "running" not in k]
+    if against == "jax_mesh":
+        want = jax_mesh[f"{kind}_jax_mesh"]
+        grads = {k: want["grads"][k] for k in names}
+        stats = {k: v for k, v in want["grads"].items() if "running" in k}
+    else:
+        want = single
+        grads = dict(zip(names, single["grads"]))
+        stats = {k: v for k, v in single["state"].items() if "running" in k}
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in grads.values())
+    for r in ranks:
+        got = r[f"{kind}_step"]
+        assert got["metrics"].keys() == want["metrics"].keys()
+        for k, v in want["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                       err_msg=k)
+        _grads_close(dict(zip(names, got["grads"])), grads, scale)
+        for k, v in stats.items():
+            np.testing.assert_allclose(got["state"][k].numpy(),
+                                       np.asarray(v), rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+    _ranks_equal(ranks, f"{kind}_step")
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TF.get_cnn_trainer(n_class=10, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TF.get_lamcnn_trainer(n_class=2, lam_coef=1e-3, device="cpu",
-                              mesh=object())
+
+def test_lam_pairs_rows_across_ranks(job):
+    """The shuffle is the global batch's: each rank's x̃ is its block of
+    x[perm] for the one permutation of the global labels and uniforms,
+    partners share a label, and some rank's x̃ holds a row of another
+    rank's block (a per-rank shuffle never does)."""
+    from clearvae_torch.parallel.mesh import block
+    from clearvae_torch.train.steps import stratified_perm
+
+    ranks, _, _, inp = job
+    label, x = inp["lam_label"], inp["cnn_x"]
+    perm = stratified_perm(label, inp["lam_u"])
+    assert torch.equal(label[perm], label)
+    crossed = 0
+    for r, res in enumerate(ranks):
+        lo, hi = block(B, WORLD, r)
+        assert torch.equal(res["lam_step"]["x_tilde"], x[perm[lo:hi]])
+        crossed += int(((perm[lo:hi] < lo) | (perm[lo:hi] >= hi)).sum())
+    assert crossed > 0
+
+
+@pytest.mark.parametrize("kind", list(CNN_CLASSES))
+def test_cnn_tp_step_matches_single_device(job, kind):
+    """The CNN and LAM-CNN steps on make_mesh2d(2, 2) = the single device
+    (losses rtol 1e-5, parameters after Adam at tests/test_parallel.py's
+    step bar, running statistics rtol 1e-5); both model ranks end whole
+    and equal. LAM's 5-class head does not divide the model axis and
+    stays replicated."""
+    ranks, ref, *_ = job
+    want = ref[f"{kind}_step"]
+    for r in ranks:
+        got = r[f"{kind}_tp_step"]
+        for k, v in want["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                       err_msg=k)
+        _step_params_close(got["state"], {k: v for k, v in
+                                          want["state"].items()
+                                          if "running" not in k})
+        for k, v in want["state"].items():
+            if "running" in k:
+                np.testing.assert_allclose(got["state"][k].numpy(),
+                                           v.numpy(), rtol=1e-5, atol=1e-7,
+                                           err_msg=k)
+    _ranks_equal(ranks, f"{kind}_tp_step")
+
+
+def test_cnn_graphed_fit_equals_eager_on_the_mesh(job):
+    """``get_cnn_trainer(mesh=make_mesh2d(2, 2))``: ``fit``'s default (the
+    graph's body, uncaptured on the CPU) = ``use_scan=False`` bit for bit
+    (histories and state; the eager trainer built no graph), and both =
+    the single device's fit (losses rtol 2e-4, parameters within 8 Adam
+    steps' drift at lr 1e-4) and its accuracy."""
+    ranks, ref, *_ = job
+    want = ref["cnn_fit"]
+    for r in ranks:
+        g, e = r["cnn_tp_graphed"], r["cnn_tp_eager"]
+        assert g["graphs"] and not e["graphs"]
+        for hg, he in zip(g["history"], e["history"]):
+            for k in hg:
+                np.testing.assert_array_equal(hg[k], he[k])
+        for k, v in g["state"].items():
+            assert torch.equal(v, e["state"][k]), k
+        np.testing.assert_allclose(g["losses"], want["losses"], rtol=2e-4)
+        _fit_params_close(g["state"], want["state"], 8 * 1e-4 * 2)
+        assert abs(g["acc"] - want["acc"]) <= 1 / N_FIT
+    _ranks_equal(ranks, "cnn_tp_graphed")
+
+
+def test_styled_cnn_fit_on_the_mesh(job):
+    """A SimpleCNN fit on styled digits, each rank styling its rows of
+    every batch (K3's twin) inside the graph's body: the single device's
+    losses and parameters; the unsharded evaluation gives every rank the
+    same accuracy."""
+    ranks, ref, *_ = job
+    want = ref["cnn_styled"]
+    for r in ranks:
+        np.testing.assert_allclose(r["cnn_styled"]["losses"], want["losses"],
+                                   rtol=2e-4)
+        _fit_params_close(r["cnn_styled"]["state"], want["state"],
+                          8 * 1e-4 * 2)
+        assert abs(r["cnn_styled"]["acc"] - want["acc"]) <= 1 / N_FIT
+    _ranks_equal(ranks, "cnn_styled")
+    assert len({r["cnn_styled"]["acc"] for r in ranks}) == 1
+
+
+def test_lam_checkpoint_resume_on_2x2(job):
+    """``get_lamcnn_trainer(mesh=make_mesh2d(2, 2))``: the checkpoint of
+    ``TrainerCore.state_dict`` (shards and Adam's moments gathered, the
+    uniforms' generator) restored into a fresh trainer resumes as the
+    uninterrupted run continued."""
+    ranks, *_ = job
+    for r in ranks:
+        steps = r["ckpt_lam_tp"]["steps"]
+        assert steps[0] == steps[1] == 3 * (N_FIT // B_FIT)
+        for k, v in r["ckpt_lam_tp"]["ref"].items():
+            np.testing.assert_allclose(r["ckpt_lam_tp"]["resumed"][k].numpy(),
+                                       v.numpy(), atol=2e-5, rtol=2e-4,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("against", ["jax_mesh", "port_single"])
+def test_vae64_dp_step_matches(job, against):
+    """VAE64 at z = 64 on B = 8 over make_mesh(4) (two rows a rank) = JAX's
+    VAE64 make_mesh(4) step and = the port's single device, at
+    tests/test_parallel.py's DP bars (loss and c_loss rtol 1e-5, the
+    parameters after Adam within max(1e-3·max|a|, 1.2e-3)); against the
+    single device also the gradients before Adam and the running
+    statistics."""
+    ranks, ref, jax_mesh, _ = job
+    want = (jax_mesh["v64_jax_mesh"] if against == "jax_mesh"
+            else ref["v64_step"])
+    for r in ranks:
+        got = r["v64_step"]
+        for k in ("loss", "c_loss"):
+            np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
+                                       rtol=1e-5, err_msg=k)
+        _step_params_close(got["state"], {k: v for k, v in
+                                          want["state"].items()
+                                          if "running" not in k})
+        if against == "port_single":
+            scale = max(float(w.abs().max()) for w in want["grads"])
+            for g, w in zip(got["grads"], want["grads"]):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                           atol=1e-5 * scale)
+            for k, v in want["state"].items():
+                if "running" in k:
+                    np.testing.assert_allclose(got["state"][k].numpy(),
+                                               v.numpy(), rtol=1e-5,
+                                               atol=1e-7, err_msg=k)
+    _ranks_equal(ranks, "v64_step")
+
+
+@pytest.mark.parametrize("name", list(V64_FACTORIES))
+def test_vae64_factories_on_both_meshes(job, name):
+    """Each VAE factory with ``vae_arch="VAE64"`` (z = 64; CLEAR, TC and
+    MIM with the fused latent losses, K1's and K2's twins on the gathered
+    heads; CLEAR also in the bf16 perf mode, bfloat16 conv stacks and
+    fused heads) on make_mesh(4) and on make_mesh2d(2, 2): one step's
+    metrics = the single device's (rtol 1e-5; the TC and MIM steps' 2e-4;
+    bf16's one rounding of its 8-bit mantissa, 2⁻⁸: a rank's convolutions
+    over its own rows round elsewhere) and its update (the 1-D leaves and
+    the latent heads) within the step bar."""
+    ranks, ref, *_ = job
+    want = ref[f"v64_{name}"]
+    rtol = {"tc": 2e-4, "mim": 2e-4, "clear_bf16": 2 ** -8}.get(name, 1e-5)
+    for tag in ("dp", "tp"):
+        for r in ranks:
+            got = r[f"v64_{name}_{tag}"]
+            assert got["metrics"].keys() == want["metrics"].keys()
+            for k, v in want["metrics"].items():
+                np.testing.assert_allclose(got["metrics"][k], v, rtol=rtol,
+                                           err_msg=(tag, k))
+            _step_params_close(got["state"], {k: v for k, v in
+                                              want["state"].items()
+                                              if "running" not in k})
+        _ranks_equal(ranks, f"v64_{name}_{tag}")
 
 
 if __name__ == "__main__":

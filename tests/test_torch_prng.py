@@ -16,6 +16,16 @@ IDS = np.concatenate([np.arange(1024), 65530 + np.arange(1024) * 977,
                       np.arange(2 ** 31 - 1024, 2 ** 31)]).astype(np.int32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_pairs(keys):
     data = np.asarray(jax.vmap(jax.random.key_data)(keys)).astype(np.int64)
     return data[..., 0], data[..., 1]

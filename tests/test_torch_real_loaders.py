@@ -10,6 +10,7 @@ import zlib
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 from PIL import Image
 
 from clearvae_tpu.data import camelyon17 as JCAM
@@ -20,6 +21,16 @@ from clearvae_torch.data import camelyon17 as TCAM
 from clearvae_torch.data import celeba as TCEL
 from clearvae_torch.data import chexpert as TCHX
 from clearvae_torch.data import pacs as TPACS
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _img(path, size=(32, 40), mode="RGB"):

@@ -28,6 +28,16 @@ FACTORIES = ("get_clearvae_trainer", "get_cleartcvae_trainer",
              "get_clearmimvae_trainer", "get_hierarchical_vae_trainer")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_models_are_the_jax_names_of_the_ported_architectures():
     assert list(TR.MODELS) == list(JR.MODELS)
     for name, cls in TR.MODELS.items():

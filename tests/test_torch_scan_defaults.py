@@ -2,9 +2,8 @@
 captured step's body runs uncaptured): ``fit`` and ``evaluate`` default to
 it and equal their eager loops bit for bit; the graphed ``evaluate`` and
 the ``epochs_per_scan`` fit equal the JAX package's programs from bridged
-weights and its key chain; ``scan_unroll`` and ``scan_gather`` change
-nothing in the numbers and raise JAX's errors; the graphed probe equals the
-eager one and JAX's."""
+weights and its key chain; the graphed probe equals the eager one and
+JAX's. The scan knobs are ``test_torch_scan_knobs.py``'s."""
 
 import jax
 import jax.numpy as jnp
@@ -204,28 +203,6 @@ def test_evaluate_keeps_one_graph_across_datasets():
         assert next(iter(tt._graphs.values()))[0] is ds
 
 
-# ---------------------------------------------------------------------------
-# the scan knobs
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("kind,unroll", [
-    ("clear-fused", 4), ("clear-styled", 4), ("mim", 4),
-    ("clear-fused", 0), ("clear-fused", True)])
-def test_scan_unroll_equals_unroll_1_bitwise(kind, unroll):
-    """7 batches of 16 (7 % 4 = 3 in a tail; 0 or True is the whole epoch,
-    as in lax.scan): every unroll replays the one-step graph."""
-    ds = _styled(112)
-    styled = kind == "clear-styled"
-    one, many = _trainer(kind), _trainer(kind)
-    one.fit(2, ds, batch_size=16, style_on_device=styled)
-    many.fit(2, ds, batch_size=16, style_on_device=styled, scan_unroll=unroll)
-    _histories_equal(one, many)
-    _state_equal(one, many)
-    assert len(many._graphs) == 1
-    assert next(iter(many._graphs.values()))[1].idx.shape == (16,)
-
-
 def test_epochs_per_scan_keeps_the_last_batch_of_each_epoch():
     ds = _styled(96)
     one, two = _trainer("clear-fused"), _trainer("clear-fused")
@@ -292,45 +269,6 @@ def test_epochs_per_scan_histories_equal_jax_multi_epoch_fit():
             rtol = bars.get(k, 1e-2)
             np.testing.assert_allclose(th[k], np.asarray(jh[k]), rtol=rtol,
                                        err_msg=k)
-
-
-@pytest.mark.parametrize("kind", ["clear-fused", "tc"])
-def test_permute_slice_equals_take(kind):
-    ds = _styled(96)
-    take, sliced = _trainer(kind), _trainer(kind)
-    take.fit(2, ds, batch_size=32)
-    sliced.fit(2, ds, batch_size=32, scan_gather="permute_slice",
-               epochs_per_scan=2)
-    ref = _trainer(kind)
-    ref.fit(2, ds, batch_size=32, epochs_per_scan=2)
-    _state_equal(take, sliced)
-    _histories_equal(ref, sliced)
-    # the one-step graph, which gathers each batch inside it
-    assert len(sliced._graphs) == 1
-
-
-def _jax_error(**kw):
-    ds = jax_make_styled(*jax_synthetic_mnist(32, seed=0), seed=0)
-    jt = JTrainer(JVAE(total_z_dim=16), optax.adam(5e-4), sim_fn="cosine",
-                  hyperparameter=HP, seed=0, mig_backend="numpy")
-    with pytest.raises(ValueError) as err:
-        jt.fit(1, ds, batch_size=16, **kw)
-    return str(err.value)
-
-
-@pytest.mark.parametrize("kw", [
-    {"scan_gather": "bogus"},
-    {"scan_gather": "permute_slice", "style_on_device": True},
-    {"scan_gather": "bogus", "style_on_device": True},
-    {"scan_unroll": -1},
-])
-def test_knob_errors_match_jax(kw):
-    want = _jax_error(**kw)
-    t = _trainer("clear-fused")
-    with pytest.raises(ValueError) as err:
-        t.fit(1, _styled(32), batch_size=16, **kw)
-    assert str(err.value) == want
-    assert t.train_step.step == 0 and t._graphs == {}
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from clearvae_tpu.data.common import ArrayDataset
@@ -18,6 +19,16 @@ from clearvae_torch.train.factories import get_clearvae_trainer
 
 HP = dict(beta=1 / 8, ps=True, alpha=100.0, temperature=0.1)
 N_TRAIN, N_EVAL, BS, EPOCHS, SEED = 256, 72, 32, 2, 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: these small CPU workloads run several to a
+    machine under the parallel test run, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _eps(jm, variables, key, n):

@@ -1,8 +1,9 @@
 """Parity of the port's qualitative figures (clearvae_torch.utils.visual)
-with the JAX package's: the numpy grids bit for bit; the swap grid and the
-interpolation strips, fed one shared numpy decode function in both
-packages, within 1e-6; ``make_decode_fn`` on bridged VAE weights within
-1e-5; ``tsne_plot`` on a few dozen points writes its four plots."""
+with the JAX package's: the swap grid and the interpolation strips, fed
+one shared numpy decode function in both packages, within 1e-6;
+``make_decode_fn`` on bridged VAE weights within 1e-5; ``tsne_plot`` on a
+few dozen points writes its four plots. The numpy grids are
+``test_torch_grids.py``'s."""
 
 import os
 import sys
@@ -40,37 +41,6 @@ def _one_thread():
 
 def _imgs(n, c, seed=0):
     return np.random.RandomState(seed).rand(n, HW, HW, c).astype(np.float32)
-
-
-@pytest.mark.parametrize("c", [1, 3])
-@pytest.mark.parametrize("n,nrow", [(1, 1), (5, 3), (8, 8), (7, 2), (6, 1)])
-def test_make_grid_bit_equal(n, nrow, c):
-    imgs = _imgs(n, c, seed=n)
-    np.testing.assert_array_equal(TV.make_grid(imgs, nrow),
-                                  JV.make_grid(imgs, nrow))
-    np.testing.assert_array_equal(TV.make_grid(imgs, nrow, padding=3,
-                                               pad_value=0.5),
-                                  JV.make_grid(imgs, nrow, padding=3,
-                                               pad_value=0.5))
-    if c == 1:   # [N, H, W] grayscale as JAX takes it
-        np.testing.assert_array_equal(TV.make_grid(imgs[..., 0], nrow),
-                                      JV.make_grid(imgs[..., 0], nrow))
-
-
-@pytest.mark.parametrize("color", ["red", "blue"])
-@pytest.mark.parametrize("c", [1, 3])
-@pytest.mark.parametrize("n,nrow", [(1, 1), (5, 3), (8, 8)])
-def test_make_colored_grid_bit_equal(n, nrow, c, color):
-    imgs = _imgs(n, c, seed=10 + n)
-    imgs[0, 0, 0] = 0.25     # a pixel at the padding value is recolored too
-    np.testing.assert_array_equal(TV.make_colored_grid(imgs, nrow, color),
-                                  JV.make_colored_grid(imgs, nrow, color))
-
-
-def test_make_colored_grid_rejects_other_colors():
-    for mod in (TV, JV):
-        with pytest.raises(ValueError, match="not implemented"):
-            mod.make_colored_grid(_imgs(2, 1), 2, "green")
 
 
 def test_interpolate_latent_matches_jax():
