@@ -8,7 +8,9 @@ use into ``clearvae_torch/_build/`` (listed in ``.gitignore``), under a file
 name that carries a hash of the source, so an edited source is rebuilt and a
 built one reused. It is a host op, not a device kernel: where the build
 fails, :func:`available` is False and the MIG backend ``"auto"`` takes numpy,
-as in the JAX package. Nothing is built at import time.
+as in the JAX package. Nothing is built at import time. The build and the
+load are spans and counts as the CUDA sources' are (``ops/kernels/_build.py``:
+``kernels.build``, ``kernels.load``), under ``host_ops``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import subprocess
 import sys
 
 import numpy as np
+
+from clearvae_torch.ops.kernels._build import BUILDS, LOADS
+from clearvae_torch.utils.logging import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "csrc", "host_ops.cpp")
@@ -45,9 +50,11 @@ def _build() -> str | None:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    BUILDS["host_ops"] += 1
     try:
-        subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], check=True,
-                       capture_output=True, timeout=300)
+        with span("kernels.build"):
+            subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], check=True,
+                           capture_output=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         print(f"# native host_ops build unavailable: {e}", file=sys.stderr)
         return None
@@ -61,7 +68,9 @@ def _load():
         _tried = True
         path = _build()
         if path:
-            lib = ctypes.CDLL(path)
+            with span("kernels.load"):
+                lib = ctypes.CDLL(path)
+            LOADS["host_ops"] += 1
             lib.ksg_mi_cd.restype = ctypes.c_int
             lib.ksg_mi_cd.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),

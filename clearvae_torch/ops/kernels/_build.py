@@ -7,6 +7,10 @@ rebuilt and a built one is reused. The build directory,
 ``clearvae_torch/_build/``, is listed in ``.gitignore``.
 
 Nothing here runs at import time: a CPU-only machine can import the package.
+
+A build is a span ``kernels.build`` and a load of a built library one
+``kernels.load`` (``utils/logging.py``); both are counted by source in
+``BUILDS`` and ``LOADS``, which ``native/bindings.py`` shares.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import shutil
 import subprocess
 import threading
 
+from clearvae_torch.utils.logging import counter, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -27,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # ptxas output (registers, spills) per source
+BUILDS = counter("kernels.builds")
+LOADS = counter("kernels.loads")
 
 
 def _nvcc() -> str:
@@ -69,10 +77,12 @@ def _finish(name: str, job) -> None:
 
 def build(names) -> None:
     """Compile the named sources, all nvcc processes started together."""
-    jobs = {n: _start(n) for n in names}
-    for n, job in jobs.items():
-        if job is not None:
-            _finish(n, job)
+    with span("kernels.build"):
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            if job is not None:
+                BUILDS[n] += 1
+                _finish(n, job)
 
 
 def sources() -> list[str]:
@@ -84,5 +94,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             build([name])
-            _loaded[name] = ctypes.CDLL(_lib_path(name))
+            with span("kernels.load"):
+                _loaded[name] = ctypes.CDLL(_lib_path(name))
+            LOADS[name] += 1
         return _loaded[name]

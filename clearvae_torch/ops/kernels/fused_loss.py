@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from clearvae_torch.ops import losses as L
+from clearvae_torch.utils.logging import counter
 
 Tensor = torch.Tensor
 
@@ -43,8 +44,8 @@ _MAX_FLOOR = -1e29
 _SUM_FLOOR = 1e-37
 Z_MAX = 64         # the kernels keep a row of mu in registers
 
-LAUNCHES = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
-            "snn_fwd": 0, "snn_bwd": 0}
+LAUNCHES = counter("launches.fused_loss", (
+    "clear_latent_fwdgrad", "clear_latent_bwd", "snn_fwd", "snn_bwd"))
 
 
 def reset_launches() -> None:

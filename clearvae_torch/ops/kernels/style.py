@@ -28,6 +28,8 @@ import functools
 import numpy as np
 import torch
 
+from clearvae_torch.utils.logging import counter
+
 Tensor = torch.Tensor
 
 STYLE_CODES = {"identity": 0, "stripe": 1, "brightness": 2, "inverse": 3,
@@ -41,7 +43,7 @@ _SCALE = (1 / 0.9, 1 / 0.8, 1 / 0.7, 1 / 0.6, 1 / 0.5)
 DEFAULT_SEVERITY = {"brightness": 5, "quantize": 5, "contrast": 4, "scale": 3}
 H_MAX = 64   # the kernel takes rows of up to 64 pixels, one block an image
 
-LAUNCHES = {"style": 0}
+LAUNCHES = counter("launches.style", ("style",))
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ from scipy.special import digamma as np_digamma
 
 from clearvae_torch import resolve_device
 from clearvae_torch.native import bindings
+from clearvae_torch.utils.logging import counter
 
 
 def _mi_cd_numpy(c: np.ndarray, d: np.ndarray, n_neighbors: int) -> float:
@@ -169,8 +170,19 @@ def mutual_info_classif_torch(x, y, *, n_neighbors: int = 3,
     return _mi_cd_torch(x, y, n_neighbors, nc).cpu().numpy()
 
 
+SYNCS = counter("host.syncs")   # device tensors to the host, by site
+
+
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _fetch(a, site: str) -> np.ndarray:
+    """``_host(a)``, counted under ``site`` in ``host.syncs`` where ``a``
+    is a tensor."""
+    if isinstance(a, torch.Tensor):
+        SYNCS[site] += 1
+    return _host(a)
 
 
 def mutual_info_gap(label, latent_c, latent_s, *, backend: str = "numpy",
@@ -178,7 +190,7 @@ def mutual_info_gap(label, latent_c, latent_s, *, backend: str = "numpy",
     """(mean MI(z_c, y) − mean MI(z_s, y)) / H(y). ``backend`` is one of
     ``auto | native | numpy | torch``; torch runs on the latents' device."""
     backend = resolve_backend(backend)
-    label = _host(label).ravel().astype(np.int64)
+    label = _fetch(label, "gmig.label").ravel().astype(np.int64)
     p = np.bincount(label) / len(label)
     p = p[p > 0]
     h = float(-(p * np.log(p)).sum())
@@ -189,8 +201,8 @@ def mutual_info_gap(label, latent_c, latent_s, *, backend: str = "numpy",
     else:
         mi = (mutual_info_classif_native if backend == "native"
               else mutual_info_classif_np)
-        mi_c = mi(_host(latent_c), label)
-        mi_s = mi(_host(latent_s), label)
+        mi_c = mi(_fetch(latent_c, "gmig.z_c"), label)
+        mi_s = mi(_fetch(latent_s, "gmig.z_s"), label)
     return float((mi_c.mean() - mi_s.mean()) / h)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from clearvae_torch.ops.image import constant
+from clearvae_torch.utils.logging import counter
 
 Tensor = torch.Tensor
 _M32 = 0xFFFFFFFF
@@ -170,6 +171,7 @@ def normal(k, shape=()) -> Tensor:
 # loop reached its cap: ``poisson`` adds to it on the device, and
 # ``check_poisson`` reads it (a host sync) where its caller syncs anyway
 _UNFINISHED: dict = {}
+SYNCS = counter("host.syncs")   # device tensors to the host, by site
 KNUTH_LIMIT = 10.0      # JAX draws lam < 10 by Knuth's product of uniforms
 REJECTION_ITERS = 32
 
@@ -206,7 +208,10 @@ def check_poisson(device) -> None:
     count may then differ from JAX's. Reads the counter, a host sync; a
     device that drew no Poisson value is not read."""
     d = _counter_key(device)
-    n = int(_UNFINISHED[d]) if d in _UNFINISHED else 0
+    n = 0
+    if d in _UNFINISHED:
+        SYNCS["check_poisson"] += 1
+        n = int(_UNFINISHED[d])
     if n:
         raise RuntimeError(
             f"{n} Poisson draws on {d} did not finish within their loop cap "

@@ -57,11 +57,13 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from clearvae_torch.utils.logging import counter
+
 DATA_AXIS = "data"
 
 # the collectives the port issued, counted as the kernels' launches are
 # (``ops/kernels/counts.py`` moves those of a capture to its replays)
-COLLECTIVES = {"all_reduce": 0}
+COLLECTIVES = counter("collectives", ("all_reduce",))
 
 
 def reset_collectives() -> None:

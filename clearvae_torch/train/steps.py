@@ -51,8 +51,13 @@ from clearvae_torch.ops.kernels.fused_loss import (fused_clear_latent_loss,
                                                    fused_contrastive_loss)
 from clearvae_torch.ops.schedules import logistic_anneal
 from clearvae_torch.parallel.mesh import Shard
+from clearvae_torch.utils.logging import counter, span
 
 _HEADS = ("mu_c", "logvar_c", "mu_s", "logvar_s")
+# a graphed step's eager warm-up calls, captures and replays, by its type
+WARMUPS = counter("step.warmups")
+CAPTURES = counter("step.captures")
+REPLAYS = counter("step.replays")
 
 
 def _gathered(shard, lp, n: int, keys=_HEADS) -> dict:
@@ -694,7 +699,13 @@ class _GraphedStep:
     runs uncaptured on every call. The graph holds pointers to the
     parameters, the BatchNorm buffers and the optimizer's state, so whoever
     replaces one of them (``optimizer.load_state_dict``) drops this
-    object."""
+    object.
+
+    Each row that ``run`` takes is a span ``step`` (``utils/logging.py``)
+    with the children ``step.stage`` and ``step.launch``; a warm-up call
+    is a span ``step.warmup`` and a capture one ``step.capture``. Warm-up
+    calls, captures and replays are counted under the graphed step's type
+    (``WARMUPS``, ``CAPTURES``, ``REPLAYS``)."""
 
     WARMUP = 3
 
@@ -736,14 +747,27 @@ class _GraphedStep:
         """The body on the staged batch: run, warm-up, or replay."""
         if not self.cuda:
             return self._body()
+        kind = type(self).__name__
         if self.warm < self.WARMUP:
-            return self._warm_up()
+            WARMUPS[kind] += 1
+            with span("step.warmup"):
+                return self._warm_up()
         if self.graph is None:
-            self._capture()
+            with span("step.capture"):
+                self._capture()
+            CAPTURES[kind] += 1
         graph, out, launches = self.graph
         graph.replay()
         launches.replay()
+        REPLAYS[kind] += 1
         return out
+
+    def _row(self, row):
+        """Stage ``row`` and run the body on it."""
+        with span("step.stage"):
+            self._stage(row)
+        with span("step.launch"):
+            return self._call()
 
     def _warm_up(self):
         if self.warm == 0:
@@ -816,12 +840,12 @@ class GraphedEpoch(_GraphedStep):
     def run(self, batch_idx) -> torch.Tensor:
         hist = None
         for i, row in enumerate(batch_idx):
-            self._stage(row)
-            out = self._call()
-            if hist is None:
-                hist = torch.empty((len(batch_idx), len(out)),
-                                   dtype=out.dtype, device=out.device)
-            hist[i].copy_(out)
+            with span("step"):
+                out = self._row(row)
+                if hist is None:
+                    hist = torch.empty((len(batch_idx), len(out)),
+                                       dtype=out.dtype, device=out.device)
+                hist[i].copy_(out)
         return hist
 
 
@@ -864,13 +888,14 @@ class GraphedEval(_GraphedStep):
         n, b = batch_idx.shape
         res = None
         for i in range(n):
-            self._stage(batch_idx[i])
-            out = self._call()
-            if res is None:
-                res = {k: v.new_empty((n * b, *v.shape[1:]) if v.ndim
-                                      else (n,)) for k, v in out.items()}
-            for k, v in out.items():
-                (res[k][i * b:(i + 1) * b] if v.ndim else res[k][i]).copy_(v)
+            with span("step"):
+                out = self._row(batch_idx[i])
+                if res is None:
+                    res = {k: v.new_empty((n * b, *v.shape[1:]) if v.ndim
+                                          else (n,)) for k, v in out.items()}
+                for k, v in out.items():
+                    (res[k][i * b:(i + 1) * b] if v.ndim
+                     else res[k][i]).copy_(v)
         return res
 
 

@@ -51,6 +51,10 @@ from clearvae_torch.ops import prng as P
 from clearvae_torch.parallel import mesh as PM
 from clearvae_torch.train import steps as S
 from clearvae_torch.utils.cache import enable_compilation_cache
+from clearvae_torch.utils.logging import counter, span
+
+# transfers of device tensors to the host, by site: a host sync on a card
+SYNCS = counter("host.syncs")
 
 
 def adam(lr: float, device):
@@ -249,7 +253,14 @@ class TrainerCore:
         It first takes the GPU lock and turns TF32 off
         (``utils.cache.enable_compilation_cache``), as JAX's ``fit`` takes
         its lock: a library user trains alone on the card and gets the
-        reference's fp32 numerics, runner or not."""
+        reference's fp32 numerics, runner or not.
+
+        Each block is a span ``fit.epoch`` (``utils/logging.py``) with the
+        children ``fit.shuffle`` (the permutations and their upload),
+        ``fit.steps``, ``fit.sync`` (the history to the host and the
+        Poisson check: the host waiting on the device), ``fit.log`` (the
+        logger and the print), ``evaluate`` where it validates, and
+        ``fit.checkpoint``."""
         enable_compilation_cache(self.device)
         if use_scan:
             if scan_unroll < 0:
@@ -281,38 +292,53 @@ class TrainerCore:
         while epoch < end_epoch:
             block = min(per_block, end_epoch - epoch)
             end = epoch + block          # the first epoch after this block
-            t0 = time.perf_counter()
-            idx = torch.as_tensor(np.stack([perm(e) for e in range(epoch, end)]),
-                                  device=self.device)
-            hists = [run(bi) for bi in idx]
-            keys = hists[0][1]
-            if per_block > 1:            # the last batch of each epoch
-                hist = torch.stack([h[-1] for h, _ in hists]).cpu().numpy()
-            else:
-                hist = hists[0][0].cpu().numpy()
-            P.check_poisson(self.device)
-            self.history.append({k: hist[:, j] for j, k in enumerate(keys)})
-            self._post_train_epoch(self.history[-1])
-            last = {k: v[-1] for k, v in self.history[-1].items()}
-            if logger is not None and self.shard.leader:
-                dt = time.perf_counter() - t0
-                logger.log("train", step=self.train_step.step, epoch=end - 1,
-                           images_per_sec=block * n / dt if dt > 0 else 0,
-                           **{k: float(v) for k, v in last.items()})
-            if any(e % self.verbose_period == 0 for e in range(epoch, end)):
-                if self.shard.leader:
-                    print(f"epoch {end - 1}: "
-                          f"{ {k: round(float(v), 3) for k, v in last.items()} }")
-                if valid_ds is not None:
+            with span("fit.epoch"):
+                t0 = time.perf_counter()
+                with span("fit.shuffle"):
+                    idx = torch.as_tensor(
+                        np.stack([perm(e) for e in range(epoch, end)]),
+                        device=self.device)
+                with span("fit.steps"):
+                    hists = [run(bi) for bi in idx]
+                keys = hists[0][1]
+                with span("fit.sync"):
+                    SYNCS["fit.history"] += 1
+                    if per_block > 1:    # the last batch of each epoch
+                        hist = torch.stack([h[-1] for h, _ in hists])
+                    else:
+                        hist = hists[0][0]
+                    hist = hist.cpu().numpy()
+                    P.check_poisson(self.device)
+                self.history.append({k: hist[:, j]
+                                     for j, k in enumerate(keys)})
+                self._post_train_epoch(self.history[-1])
+                last = {k: v[-1] for k, v in self.history[-1].items()}
+                verbose = any(e % self.verbose_period == 0
+                              for e in range(epoch, end))
+                with span("fit.log"):
+                    if logger is not None and self.shard.leader:
+                        dt = time.perf_counter() - t0
+                        logger.log("train", step=self.train_step.step,
+                                   epoch=end - 1,
+                                   images_per_sec=block * n / dt if dt > 0
+                                   else 0,
+                                   **{k: float(v) for k, v in last.items()})
+                    if verbose and self.shard.leader:
+                        rounded = {k: round(float(v), 3)
+                                   for k, v in last.items()}
+                        print(f"epoch {end - 1}: {rounded}")
+                if verbose and valid_ds is not None:
                     self._verbose_valid(
                         valid_ds, batch_size,
-                        style_on_device=(style_on_device
-                                         and hasattr(valid_ds, "device_arrays")),
+                        style_on_device=(style_on_device and
+                                         hasattr(valid_ds, "device_arrays")),
                         use_scan=use_scan)
-            if checkpoint_dir and (any((e + 1) % checkpoint_every == 0
-                                       for e in range(epoch, end))
-                                   or end == end_epoch):
-                self.save_checkpoint(checkpoint_dir, {"epoch": end - 1})
+                if checkpoint_dir and (any((e + 1) % checkpoint_every == 0
+                                           for e in range(epoch, end))
+                                       or end == end_epoch):
+                    with span("fit.checkpoint"):
+                        self.save_checkpoint(checkpoint_dir,
+                                             {"epoch": end - 1})
             epoch = end
         return self._fit_result()
 
@@ -431,42 +457,58 @@ class VAETrainerBase(TrainerCore):
         ``use_scan``. Under a mesh each rank evaluates its rows of every
         batch and the eval step gathers the latents and totals the
         scalars, so MIG and MSE come from the global arrays, equal on
-        every rank."""
-        n = len(ds)
-        bs = min(batch_size, n)
-        nb = n // bs
-        full = torch.arange(nb * bs, device=self.device).view(nb, bs)
-        eager = self._epoch_runner(ds, self.eval_step, style_on_device,
-                                   self._eval_noise)
-        if use_scan:
-            ge = self._graphed(("eval", id(self.eval_step), bs,
-                                style_on_device), S.GraphedEval, ds,
-                               style_on_device, self.eval_step, bs,
-                               self._eval_noise)
-            outs = ge.run(full)
-        else:
-            ms = eager(full)
-            outs = {k: (torch.cat([m[k] for m in ms]) if k in S.GraphedEval.LATENTS
-                        else torch.stack([m[k] for m in ms]))
-                    for k, v in ms[0].items()
-                    if v.ndim == 0 or k in S.GraphedEval.LATENTS}
-        tail = (eager(torch.arange(nb * bs, n, device=self.device)[None])[0]
-                if n > nb * bs else None)
-        # JAX's reduction: a float32 sum of the full batches' means, plus
-        # the tail's, over the number of batches
-        n_batches = nb + (tail is not None)
-        self.last_eval_totals = {
-            k: (float(v.cpu().numpy().sum())
-                + (float(tail[k]) if tail is not None else 0.0)) / n_batches
-            for k, v in outs.items() if k not in S.GraphedEval.LATENTS}
-        P.check_poisson(self.device)
-        z_c, z_s = outs["z_c"], outs["z_s"]
-        if tail is not None:
-            z_c = torch.cat([z_c, tail["z_c"]])
-            z_s = torch.cat([z_s, tail["z_s"]])
-        mig = MT.mutual_info_gap(self._labels(ds), z_c, z_s,
-                                 backend=self.mig_backend)
-        return mig, self.last_eval_totals["recon"]
+        every rank.
+
+        The call is a span ``evaluate`` (``utils/logging.py``) with the
+        children ``evaluate.batches`` (the replays and the ragged tail),
+        ``evaluate.fetch`` (the totals to the host, which waits for the
+        batches, and the Poisson check) and ``evaluate.gmig``
+        (``mutual_info_gap``: the labels' round trip, the latents to the
+        host, the KSG estimates)."""
+        with span("evaluate"):
+            n = len(ds)
+            bs = min(batch_size, n)
+            nb = n // bs
+            latents = S.GraphedEval.LATENTS
+            with span("evaluate.batches"):
+                full = torch.arange(nb * bs, device=self.device).view(nb, bs)
+                eager = self._epoch_runner(ds, self.eval_step,
+                                           style_on_device, self._eval_noise)
+                if use_scan:
+                    ge = self._graphed(("eval", id(self.eval_step), bs,
+                                        style_on_device), S.GraphedEval, ds,
+                                       style_on_device, self.eval_step, bs,
+                                       self._eval_noise)
+                    outs = ge.run(full)
+                else:
+                    ms = eager(full)
+                    outs = {k: (torch.cat([m[k] for m in ms]) if k in latents
+                                else torch.stack([m[k] for m in ms]))
+                            for k, v in ms[0].items()
+                            if v.ndim == 0 or k in latents}
+                tail = (eager(torch.arange(nb * bs, n,
+                                           device=self.device)[None])[0]
+                        if n > nb * bs else None)
+            # JAX's reduction: a float32 sum of the full batches' means,
+            # plus the tail's, over the number of batches
+            n_batches = nb + (tail is not None)
+            with span("evaluate.fetch"):
+                totals = [k for k in outs if k not in latents]
+                SYNCS["evaluate.totals"] += len(totals) * (
+                    1 + (tail is not None))
+                self.last_eval_totals = {
+                    k: (float(outs[k].cpu().numpy().sum())
+                        + (float(tail[k]) if tail is not None else 0.0))
+                    / n_batches for k in totals}
+                P.check_poisson(self.device)
+            z_c, z_s = outs["z_c"], outs["z_s"]
+            if tail is not None:
+                z_c = torch.cat([z_c, tail["z_c"]])
+                z_s = torch.cat([z_s, tail["z_s"]])
+            with span("evaluate.gmig"):
+                mig = MT.mutual_info_gap(self._labels(ds), z_c, z_s,
+                                         backend=self.mig_backend)
+            return mig, self.last_eval_totals["recon"]
 
     @torch.no_grad()
     def encode_dataset(self, ds, batch_size: int = 128, what: str = "mu_c"):

@@ -1,4 +1,4 @@
-"""The port's metric logger, throughput meter and profiler context, and
+"""The port's metric logger and profiler context, and
 ``fit(logger=...)`` against the JAX package's on the same tiny run
 (tests/test_utils.py:241): the same tags and keys per epoch, the same
 update counts and epochs."""
@@ -16,8 +16,7 @@ from clearvae_tpu.utils.logging import MetricLogger as JLogger
 from clearvae_torch.data.mnist import synthetic_mnist
 from clearvae_torch.data.styled import make_styled_mnist
 from clearvae_torch.train.factories import get_clearvae_trainer
-from clearvae_torch.utils.logging import (MetricLogger, Throughput,
-                                          profile_trace)
+from clearvae_torch.utils.logging import MetricLogger, profile_trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,14 +49,6 @@ def test_metric_logger(tmp_path):
     assert lines[0]["loss"] == 1.5 and lines[0]["step"] == 1
     assert lines[1]["tag"] == "eval" and "step" not in lines[1]
     assert MetricLogger(None).log("x", a=1)["a"] == 1   # no file: records only
-
-
-def test_throughput_meter():
-    t = Throughput()
-    t.start()
-    t.add(100)
-    t.add(28)
-    assert t.images == 128 and t.images_per_sec > 0
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
