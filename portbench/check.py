@@ -22,6 +22,13 @@ it, step 5 is a replay, as is every step of the window. The numbers read:
   leaving out the leaves whose reference gradient is under a thousandth
   of the median leaf's (a conv bias before BatchNorm: Adam moves it by
   round-off alone);
+- for each module of the trainer's ``MODULES`` after ``model`` (a second
+  player, such as CLEAR-MIM's ``mi_estimator``), the same four over its
+  own leaves, named ``<module>.grad1_median_gap``, ``.grad1_gap``,
+  ``.delta5_median_gap`` and ``.delta5_gap``: the first gradient that its
+  own optimizer took, the change over the five train steps, with the
+  module's own median and its own ``moved`` leaves; the four above stay
+  the model's;
 - where the cell validates, from the model's state and the noise
   generator's at the window's last validation, which the reference
   evaluates again: ``mse_gap`` (relative) and ``mig_gap`` (absolute);
@@ -102,21 +109,40 @@ def moved(ref_grad: dict) -> set:
     return {k for k, v in g.items() if v >= 1e-3 * med}
 
 
-def step_numbers(prog_losses, grad1, params, weights, ref) -> dict:
-    gaps = [abs(p - r) / abs(r) for p, r in zip(prog_losses, ref["losses"])]
-    if len(gaps) < len(ref["losses"]):
-        gaps += [math.inf] * (len(ref["losses"]) - len(gaps))
+def leaf_numbers(grad1, params, weights: dict, ref: dict) -> dict:
+    """The first gradient's and the five-step change's gaps (median and
+    worst leaf) over the leaves of ``weights``."""
+    keys = list(weights)
+
+    def own(tree):
+        return None if tree is None else {k: tree[k] for k in keys if k in tree}
+
     delta = (None if params is None else
-             {k: params[k] - weights[k] for k in weights})
-    ref_delta = {k: ref["params"][k] - weights[k] for k in weights}
-    g = leaf_gaps(grad1, ref["grad1"]).values()
-    d = leaf_gaps(delta, ref_delta, moved(ref["grad1"])).values()
-    return {"loss1_gap": gaps[0],
-            "loss_gap": max(gaps),
-            "grad1_median_gap": statistics.median(g),
+             {k: params[k] - weights[k] for k in keys})
+    ref_delta = {k: ref["params"][k] - weights[k] for k in keys}
+    ref_grad1 = own(ref["grad1"])
+    g = leaf_gaps(own(grad1), ref_grad1).values()
+    d = leaf_gaps(delta, ref_delta, moved(ref_grad1)).values()
+    return {"grad1_median_gap": statistics.median(g),
             "grad1_gap": max(g),
             "delta5_median_gap": statistics.median(d),
             "delta5_gap": max(d)}
+
+
+def step_numbers(prog_losses, grad1, params, weights, ref,
+                 modules=("model",)) -> dict:
+    """The loss gaps, then ``leaf_numbers`` of each module of ``modules``
+    over its own leaves, named with the module's ``prefix``."""
+    gaps = [abs(p - r) / abs(r) for p, r in zip(prog_losses, ref["losses"])]
+    if len(gaps) < len(ref["losses"]):
+        gaps += [math.inf] * (len(ref["losses"]) - len(gaps))
+    out = {"loss1_gap": gaps[0], "loss_gap": max(gaps)}
+    for m in modules:
+        mine = {k: v for k, v in weights.items()
+                if H.module_of(k, modules) == m}
+        out.update({H.prefix(m) + k: v for k, v in
+                    leaf_numbers(grad1, params, mine, ref).items()})
+    return out
 
 
 def reference_validation(run: H.Run, state: dict, gen_state, tf32=False,
@@ -145,7 +171,7 @@ def program_readings(run: H.Run, history: list) -> dict:
     obs = run.observer
     ref = reference_steps(run)
     out = step_numbers([float(v) for v in history[0][:H.CHECK_STEPS]],
-                       obs.grad1, obs.params, run.weights, ref)
+                       obs.grad1, obs.params, run.weights, ref, run.modules)
     if run.cell.validate:
         if obs.validation is None:
             out["mig_gap"] = out["mse_gap"] = math.inf

@@ -14,6 +14,17 @@ its default) on the program's datasets of the benchmark's inputs. The
 benchmark makes the inputs and the weights from ``--seed`` on the device and
 hands the same to the program and to the plain reference that the
 configuration names (``reference/<name>.py``).
+
+A trainer may hold several modules, each with its own optimizer: it names
+them in ``MODULES`` and ``OPTIMIZERS`` (``("model", "mi_estimator")`` and
+``("optimizer", "mi_optimizer")`` for CLEAR-MIM). The harness reads those
+declarations. A leaf of ``model`` keeps its own name; a leaf of any other
+module is ``<attribute>.<leaf>`` (``mi_estimator.net.mu_l1.weight``), and
+the reference's ``param_spec`` lists those after the model's. Every module
+is loaded from the one draw under the same strict check of names and
+shapes. The observer takes each optimizer's first gradient and every
+module's parameters after train step ``CHECK_STEPS``, and the check
+compares each module by itself (``check.py``).
 """
 
 from __future__ import annotations
@@ -135,7 +146,9 @@ def build_trainer(cell: Cell, seed: int, device):
 def make_weights(spec, seed: int, device) -> dict:
     """Every parameter of ``spec`` [(name, shape, bound)], drawn on
     ``device`` in one call from a seeded generator: uniform in ±bound,
-    BatchNorm scales around 1."""
+    BatchNorm scales around 1. A spec of several modules (the model's
+    leaves, then ``<attribute>.<leaf>`` of each other module) is one draw
+    in that order."""
     gen = torch.Generator(device=device).manual_seed(seed)
     sizes = [math.prod(shape) for _, shape, _ in spec]
     u = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
@@ -149,8 +162,31 @@ def make_weights(spec, seed: int, device) -> dict:
     return out
 
 
-def load_weights(model, weights: dict) -> None:
-    names = dict(model.named_parameters())
+def prefix(module: str) -> str:
+    """The prefix of a module's leaf names: none for ``model``,
+    ``<attribute>.`` for any other module of the trainer."""
+    return "" if module == "model" else f"{module}."
+
+
+def module_of(leaf: str, modules) -> str:
+    """The module of ``modules`` that a leaf name belongs to."""
+    for m in modules:
+        if m != "model" and leaf.startswith(prefix(m)):
+            return m
+    return "model"
+
+
+def named_parameters(trainer) -> dict:
+    """{leaf name: parameter} of every module of ``trainer.MODULES``."""
+    return {prefix(m) + k: p for m in trainer.MODULES
+            for k, p in getattr(trainer, m).named_parameters()}
+
+
+def load_weights(trainer, weights: dict) -> None:
+    """Every module of ``trainer.MODULES`` from ``weights``: the names of
+    all their leaves have to be the reference's, and each shape its
+    shape."""
+    names = named_parameters(trainer)
     if set(names) != set(weights):
         raise RuntimeError(
             "the program's parameters are not the reference's: "
@@ -165,20 +201,24 @@ def load_weights(model, weights: dict) -> None:
 
 
 class Observer:
-    """What the check reads from the program, taken as it runs: after the
-    first train step the gradient that the optimizer took (Adam's first
-    moment over 1 − β1), after ``CHECK_STEPS`` steps the parameters; at
+    """What the check reads from the program, taken as it runs: after each
+    optimizer's first update the gradient that it took (Adam's first
+    moment over 1 − β1), with the leaf names of ``named_parameters``; after
+    the whole of train step ``CHECK_STEPS`` every module's parameters; at
     each ``evaluate`` the model's state and the noise generator's before
-    the call, and its result. A step is counted where it runs: an
-    optimizer update outside a capture (the warm-up calls; on the CPU
-    every step), or, inside ``counting_replays``, a replay of the first
-    CUDA graph replayed (the train step's). ``evaluate`` is wrapped on the
-    trainer, so in-fit validation goes through the wrapper;
-    ``original_evaluate`` is the program's."""
+    the call, and its result. A step is counted where it runs: an update
+    of the trainer's ``optimizer`` outside a capture (the warm-up calls; on
+    the CPU every step), or, inside ``counting_replays``, a replay of the
+    first CUDA graph replayed (the train step's). The parameters are taken
+    after that replay, or, where step ``CHECK_STEPS`` runs eagerly, again
+    after each later update of any optimizer while it is the step counted
+    (a second player's updates follow the model's within a step).
+    ``evaluate`` is wrapped on the trainer, so in-fit validation goes
+    through the wrapper; ``original_evaluate`` is the program's."""
 
     def __init__(self, trainer):
         self.trainer = trainer
-        self.names = {id(p): k for k, p in trainer.model.named_parameters()}
+        self.names = {id(p): k for k, p in named_parameters(trainer).items()}
         self.steps = 0
         self.grad1 = None
         self.params = None
@@ -187,27 +227,39 @@ class Observer:
         self.validations = 0
         self.validation_s = []      # each call's wall, to a synchronize
         self.original_evaluate = trainer.evaluate
-        trainer.optimizer.register_step_post_hook(self._after_update)
+        self.updated = set()        # ids of the optimizers that have updated
+        for o in trainer.OPTIMIZERS:
+            getattr(trainer, o).register_step_post_hook(self._after_update)
         trainer.evaluate = self._evaluate
 
     def _after_update(self, optimizer, args, kwargs):
         p0 = optimizer.param_groups[0]["params"][0]
         if p0.is_cuda and torch.cuda.is_current_stream_capturing():
             return                  # a capture runs nothing
-        self._stepped(optimizer)
+        if id(optimizer) not in self.updated:
+            self.updated.add(id(optimizer))
+            self._take_grad1(optimizer)
+        if optimizer is self.trainer.optimizer:
+            self._stepped()
+        elif self.steps == CHECK_STEPS:
+            self._take_params()
 
-    def _stepped(self, optimizer):
+    def _take_grad1(self, optimizer):
+        beta1 = optimizer.param_groups[0]["betas"][0]
+        self.grad1 = {**(self.grad1 or {}), **{
+            self.names[id(p)]: (optimizer.state[p]["exp_avg"] / (1 - beta1)
+                                if "exp_avg" in optimizer.state.get(p, {})
+                                else torch.zeros_like(p)).detach().clone()
+            for g in optimizer.param_groups for p in g["params"]}}
+
+    def _take_params(self):
+        self.params = {k: p.detach().clone()
+                       for k, p in named_parameters(self.trainer).items()}
+
+    def _stepped(self):
         self.steps += 1
-        if self.steps == 1:
-            beta1 = optimizer.param_groups[0]["betas"][0]
-            self.grad1 = {
-                self.names[id(p)]: (optimizer.state[p]["exp_avg"] / (1 - beta1)
-                                    if "exp_avg" in optimizer.state.get(p, {})
-                                    else torch.zeros_like(p)).detach().clone()
-                for g in optimizer.param_groups for p in g["params"]}
         if self.steps == CHECK_STEPS:
-            self.params = {k: p.detach().clone() for k, p in
-                           self.trainer.model.named_parameters()}
+            self._take_params()
 
     @contextlib.contextmanager
     def counting_replays(self):
@@ -221,7 +273,7 @@ class Observer:
             if obs.train_graph is None:
                 obs.train_graph = graph
             if graph is obs.train_graph:
-                obs._stepped(obs.trainer.optimizer)
+                obs._stepped()
 
         torch.cuda.CUDAGraph.replay = counted
         try:
@@ -254,6 +306,7 @@ class Run:
     weights: dict
     observer: Observer
     n_train: int
+    modules: tuple      # the trainer's MODULES
 
     def fit(self, epochs: int, start: int):
         c = self.cell
@@ -286,10 +339,11 @@ def set_up(cell: Cell, seed: int, device) -> Run:
     trainer = build_trainer(cell, seeds["trainer"], device)
     weights = make_weights(reference(cell).param_spec(cell.config),
                            seeds["weights"], device)
-    load_weights(trainer.model, weights)
+    load_weights(trainer, weights)
     clock("trainer and weights")
     run = Run(cell, seeds, device, data, datasets, trainer, weights,
-              Observer(trainer), len(datasets["train"]))
+              Observer(trainer), len(datasets["train"]),
+              tuple(trainer.MODULES))
     if len(run.batches(0)) < CHECK_STEPS:
         raise ValueError(f"an epoch of {len(run.batches(0))} steps: the "
                          f"check follows the first {CHECK_STEPS} of epoch 0")

@@ -45,7 +45,7 @@ def readings(workload: str, seed: int, device="cuda", overrides=None) -> dict:
     for name, kw in (("control", {"tf32": True}), ("half", {"half": True})):
         alt = C.reference_steps(run, batches=batches, **kw)
         out[name] = C.step_numbers(alt["losses"], alt["grad1"], alt["params"],
-                                   run.weights, ref)
+                                   run.weights, ref, run.modules)
         out[name]["nonfinite_losses"] = float(
             sum(not math.isfinite(v) for v in alt["losses"]))
     if cell.validate and snapshot is not None:
@@ -62,18 +62,24 @@ def readings(workload: str, seed: int, device="cuda", overrides=None) -> dict:
 
 
 def worst_leaves(run, obs, ref, n: int = 3) -> dict:
-    """The leaves of the program's largest gradient and change gaps."""
+    """The leaves of the program's largest gradient and change gaps, each
+    module's among its own (``<module>.grad1`` after the model's)."""
     from portbench import check as C
+    from portbench import harness as H
 
-    delta = (None if obs.params is None else
-             {k: obs.params[k] - run.weights[k] for k in run.weights})
-    ref_delta = {k: ref["params"][k] - run.weights[k] for k in run.weights}
     out = {}
-    for name, gaps in (("grad1", C.leaf_gaps(obs.grad1, ref["grad1"])),
-                       ("delta5", C.leaf_gaps(delta, ref_delta,
-                                              C.moved(ref["grad1"])))):
-        top = sorted(gaps.items(), key=lambda kv: -kv[1])[:n]
-        out[name] = [[k, v, int(run.weights[k].numel())] for k, v in top]
+    for m in run.modules:
+        keys = [k for k in run.weights if H.module_of(k, run.modules) == m]
+        delta = (None if obs.params is None else
+                 {k: obs.params[k] - run.weights[k] for k in keys})
+        ref_delta = {k: ref["params"][k] - run.weights[k] for k in keys}
+        ref_grad1 = {k: ref["grad1"][k] for k in keys}
+        for name, gaps in (("grad1", C.leaf_gaps(obs.grad1, ref_grad1)),
+                           ("delta5", C.leaf_gaps(delta, ref_delta,
+                                                  C.moved(ref_grad1)))):
+            top = sorted(gaps.items(), key=lambda kv: -kv[1])[:n]
+            out[H.prefix(m) + name] = [[k, v, int(run.weights[k].numel())]
+                                       for k, v in top]
     return out
 
 

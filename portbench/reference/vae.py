@@ -8,6 +8,14 @@ unfused CLEAR loss (code/src/losses.py, trainer.py:435-493), Adam
 A configuration names its reference by module (``"reference": "vae"``);
 the harness reads a reference module through the functions at the end of
 this file: ``param_spec``, ``train_noise``, ``train`` and ``validate``.
+Where the configuration's trainer holds more modules than ``model`` (its
+``MODULES``), ``param_spec`` lists every one: the model's leaves by their
+own names, then each other module's as ``<attribute>.<leaf>``
+(``mi_estimator.net.mu_l1.weight``). The harness draws them in one call
+and loads each module under a strict check of names and shapes; ``train``
+returns ``grad1`` (each module's first gradient, as its own optimizer
+takes it) and ``params`` over all of them, and the check compares each
+module by itself (``clear_mim.py`` is such a reference).
 
 It imports nothing of the program. Parameters are a dict of tensors whose
 names follow the model's public state dict (the layout its checkpoints
@@ -204,7 +212,6 @@ def train_steps(model: PlainVAE, params: dict, batches, hp: dict,
     buf = model.buffers(dev)
     m = {k: torch.zeros_like(v) for k, v in p.items()}
     v2 = {k: torch.zeros_like(v) for k, v in p.items()}
-    b1, b2 = ADAM_BETAS
     losses, grad1 = [], None
     for t, (x, label, eps) in enumerate(batches, start=1):
         leaves = {k: v.requires_grad_(True) for k, v in p.items()}
@@ -215,15 +222,22 @@ def train_steps(model: PlainVAE, params: dict, batches, hp: dict,
         g = dict(zip(leaves, grads))
         if grad1 is None:
             grad1 = {k: gi.detach().clone() for k, gi in g.items()}
-        with torch.no_grad():
-            for k in p:
-                m[k] = b1 * m[k] + (1 - b1) * g[k]
-                v2[k] = b2 * v2[k] + (1 - b2) * g[k] * g[k]
-                m_hat = m[k] / (1 - b1 ** t)
-                v_hat = v2[k] / (1 - b2 ** t)
-                p[k] = (p[k] - hp["lr"] * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
-                        ).detach()
+        adam_update(p, m, v2, g, t, hp["lr"])
     return {"losses": losses, "grad1": grad1, "params": p}
+
+
+@torch.no_grad()
+def adam_update(p: dict, m: dict, v2: dict, g: dict, t: int,
+                lr: float) -> None:
+    """Adam's ``t``-th update of the leaves of ``g``, in place in ``p``
+    and in the moments ``m`` and ``v2``."""
+    b1, b2 = ADAM_BETAS
+    for k in g:
+        m[k] = b1 * m[k] + (1 - b1) * g[k]
+        v2[k] = b2 * v2[k] + (1 - b2) * g[k] * g[k]
+        m_hat = m[k] / (1 - b1 ** t)
+        v_hat = v2[k] / (1 - b2 ** t)
+        p[k] = (p[k] - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)).detach()
 
 
 @torch.no_grad()
@@ -285,13 +299,19 @@ def validate(config: dict, state: dict, x, labels, gen: torch.Generator,
     the noise generator ``gen`` as the evaluation finds it. ``half``
     leaves half of each batch out of the MSE and of gMIG (a planted
     fault); ``mig_dtype`` float32 is the control's gMIG."""
+    return validate_draws(config, state, x, labels,
+                          lambda k: train_noise(config, gen, k, x.device),
+                          batch_size, half, mig_dtype)
+
+
+def validate_draws(config: dict, state: dict, x, labels, draw,
+                   batch_size: int, half: bool = False,
+                   mig_dtype=torch.float64) -> tuple:
+    """``validate`` with an eval batch of k rows taking its noise from
+    ``draw(k)``, which returns the reparameterization's eps [2, k, z/2]."""
     model = PlainVAE(config["model"])
     params = {k: state[k].float() for k, _, _ in model.param_spec()}
     buf = {k: v for k, v in state.items() if "running_" in k}
-
-    def draw(k):
-        return train_noise(config, gen, k, x.device)
-
     z_c, z_s, mse = evaluate(model, params, buf, x, labels, draw, batch_size,
                              half)
     if half:

@@ -44,6 +44,7 @@ def test_a_run_loads_no_jax():
 
 def test_the_reference_imports_nothing_of_the_program():
     code = ("import portbench.reference.vae, portbench.reference.mig, "
+            "portbench.reference.clear_mim, "
             "portbench.reference.styling.corruptions, "
             "portbench.counts.flops, portbench.counts.k3")
     tops = _tops(code)
