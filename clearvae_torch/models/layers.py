@@ -16,11 +16,18 @@ public boundary, which stays NHWC as in the JAX package.
   as in the JAX package; ``update_stats=False`` normalizes a train-mode
   batch by its own statistics and leaves the running ones as they were (the
   JAX package's train-mode apply whose ``batch_stats`` update is dropped).
-- A compute ``dtype`` (the JAX package's ``dtype`` field): the parameters
-  stay float32 and are cast to ``dtype`` on each call, so a conv stack in
-  bfloat16 computes in bfloat16 while Adam updates float32 weights.
-  ``BatchNorm`` keeps its statistics in float32 whatever its input and
-  returns its input's dtype, as flax's BatchNorm does for bfloat16 inputs.
+- A compute ``dtype`` (the JAX package's ``dtype`` field), a
+  ``torch.dtype`` or its name (``compute_dtype``: "float32", "bfloat16"):
+  the parameters stay float32 and are cast to ``dtype`` on each call, so a
+  conv stack in bfloat16 computes in bfloat16 while Adam updates float32
+  weights. ``BatchNorm`` keeps its statistics in float32 whatever its input
+  and returns its input's dtype, as flax's BatchNorm does for bfloat16
+  inputs.
+- Every cast a model makes goes through ``cast``, which counts those that
+  convert in the tracer's counter ``model.casts`` (``CASTS``: ``calls``,
+  ``bytes``), and the cast of the gradient back where the backward runs
+  it. A capture's count moves to its replays, as the kernels' launch
+  counts do (``ops/kernels/counts.py``). A float32 model counts nothing.
 - Under a data mesh (``parallel/mesh.py``) a ``BatchNorm``'s ``group`` is
   the data group, and its train-mode statistics cover the global batch.
 """
@@ -32,6 +39,12 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from clearvae_torch.utils.logging import counter
+
+# the compute dtypes that a configuration names (``VAE(dtype="bfloat16")``)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CASTS = counter("model.casts", ("calls", "bytes"))
 
 
 def _uniform_fan_in_(weight: torch.Tensor, fan_in: int) -> None:
@@ -58,24 +71,56 @@ def conv_transpose2d(cin: int, cout: int, kernel: int, stride: int,
     return conv
 
 
+def compute_dtype(dtype) -> torch.dtype:
+    """``dtype`` as a ``torch.dtype``: one already, or its name in
+    ``DTYPES``; any other name raises."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown compute dtype {dtype!r}: a torch.dtype "
+                         f"or one of {sorted(DTYPES)}")
+    return DTYPES[dtype]
+
+
+def _count_cast(nbytes: int) -> None:
+    CASTS["calls"] += 1
+    CASTS["bytes"] += nbytes
+
+
+def cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in ``dtype``; where that converts, counted in ``CASTS``: a call
+    and ``numel`` × (the bytes of an element read and of one written), and
+    as much again when the backward casts the result's gradient back (6
+    bytes an element each way between float32 and bfloat16)."""
+    if t.dtype == dtype:
+        return t
+    nbytes = t.numel() * (t.element_size() + dtype.itemsize)
+    _count_cast(nbytes)
+    out = t.to(dtype)
+    if out.requires_grad:
+        out.register_hook(lambda grad: _count_cast(nbytes))
+    return out
+
+
 def cast_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """``conv`` on ``x`` with input, weight and bias cast to ``dtype`` (a
     no-op in float32): flax's Conv with a compute ``dtype``."""
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    conv.stride, conv.padding)
+    return F.conv2d(cast(x, dtype), cast(conv.weight, dtype),
+                    cast(conv.bias, dtype), conv.stride, conv.padding)
 
 
 def cast_conv_transpose(convt: nn.ConvTranspose2d, x: torch.Tensor,
                         dtype) -> torch.Tensor:
     """``convt`` on ``x`` computed in ``dtype``, as ``cast_conv``."""
-    return F.conv_transpose2d(x.to(dtype), convt.weight.to(dtype),
-                              convt.bias.to(dtype), convt.stride,
+    return F.conv_transpose2d(cast(x, dtype), cast(convt.weight, dtype),
+                              cast(convt.bias, dtype), convt.stride,
                               convt.padding, convt.output_padding)
 
 
 def cast_linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """``lin`` on ``x`` computed in ``dtype``, as ``cast_conv``."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+    return F.linear(cast(x, dtype), cast(lin.weight, dtype),
+                    cast(lin.bias, dtype))
 
 
 def linear(fin: int, fout: int) -> nn.Linear:
@@ -109,7 +154,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 update_stats: bool = True) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        dtype, x = x.dtype, x.float()
+        dtype, x = x.dtype, cast(x, torch.float32)
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
             if self.group is None:
@@ -126,8 +171,8 @@ class BatchNorm(nn.Module):
         elif not train:
             mean, var = self.running_mean, self.running_var
         mul = self.weight * torch.rsqrt(var + self.eps)
-        return ((x - mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape)).to(dtype)
+        return cast((x - mean.view(shape)) * mul.view(shape)
+                    + self.bias.view(shape), dtype)
 
     def _global_stats(self, x: torch.Tensor, dims):
         from clearvae_torch.parallel.mesh import all_reduce_sum

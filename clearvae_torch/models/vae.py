@@ -10,8 +10,11 @@ ConvT, the last one included, before the sigmoid (vae.py:44). ``VAE64``
 2×2×512 trunk (reference vae.py:105-156).
 
 ``dtype`` is the conv stacks' compute dtype (the decoder's Linear
-included); the parameters, the latent heads, the losses and the decoder's
-output stay float32, as in the JAX package (vae.py:63,117).
+included), a ``torch.dtype`` or its name ("float32", "bfloat16",
+``layers.compute_dtype``); the parameters, the latent heads, the losses
+and the decoder's output stay float32, as in the JAX package
+(vae.py:63,117). Every cast between the two is ``layers.cast``, counted
+in ``model.casts``.
 
 The public layout is NHWC, as in the JAX package; the flatten is in
 (H, W, C) order, so flax's Dense kernels map by a transpose alone. The
@@ -29,9 +32,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from clearvae_torch.models.layers import (BatchNorm, ConvBNReluStack,
+from clearvae_torch.models.layers import (BatchNorm, ConvBNReluStack, cast,
                                           cast_conv_transpose, cast_linear,
-                                          conv_transpose2d, linear)
+                                          compute_dtype, conv_transpose2d,
+                                          linear)
 from clearvae_torch.ops.group import accumulate_group_evidence, group_reparam
 
 
@@ -58,7 +62,7 @@ class _Decoder(nn.Module):
         for i, (convt, bn) in enumerate(zip(self.convts, self.bns[1:])):
             x = bn(cast_conv_transpose(convt, x, self.dtype), train)
             x = torch.sigmoid(x) if i == last else F.relu(x)
-        return x.permute(0, 2, 3, 1).float()
+        return cast(x.permute(0, 2, 3, 1), torch.float32)
 
 
 class VAE(nn.Module):
@@ -82,6 +86,7 @@ class VAE(nn.Module):
                  n_classes: int = 10, dtype=torch.float32,
                  fused_heads: bool = False, first_conv_pack: bool = False):
         super().__init__()
+        dtype = compute_dtype(dtype)
         self.total_z_dim, self.in_channel = total_z_dim, in_channel
         self.image_size, self.dtype = image_size, dtype
         self.group_mode, self.n_classes = group_mode, n_classes
@@ -113,7 +118,8 @@ class VAE(nn.Module):
         """(mu_c, logvar_c, mu_s, logvar_s) of an NHWC batch — reference
         vae.py:48-50. ``update_stats=False`` runs train mode without moving
         the running statistics."""
-        h = self.encoder(x.permute(0, 3, 1, 2), train, update_stats).float()
+        h = cast(self.encoder(x.permute(0, 3, 1, 2), train, update_stats),
+                 torch.float32)
         if self.fused_heads:
             return tuple(self.latent_heads(h).chunk(4, dim=-1))
         return (self.mu_c_head(h), self.logvar_c_head(h),
