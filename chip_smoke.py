@@ -28,9 +28,16 @@ Phases, each fatal on failure:
                 x 16,384 counters) and over the 73 passes of one
                 ``style_batch`` of MNIST-C's 16 styles at B = 128, each
                 against its bound (bytes over HBM bandwidth, int32
-                operations over the int32 rate). Every later phase
-                counts K4's launches (``launches.threefry``) beside K3's,
-                on the same paths (the JSON line's ``launches_by_path``).
+                operations over the int32 rate). glass_blur's swaps K5:
+                bit-equal to its plain twin on the operands glass_blur
+                draws at severities 1 and 5 on a B = 128 batch, in place
+                and into ``out=``, one kernel a call, timed against the
+                twin, and one glass_blur call's kernels and device time.
+                Every later phase counts K4's launches
+                (``launches.threefry``) and K5's (``launches.glass``)
+                beside K3's, on the same paths (the JSON line's
+                ``launches_by_path``): K5 runs only where glass_blur
+                does, the MNIST-C paths of phase 10.
 3. main       — the flagship configuration through the user entry points:
                 ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
                 β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
@@ -188,11 +195,11 @@ Phases, each fatal on failure:
                 epoch through the graphed ``fit`` with ``style_on_device``
                 (every style inside the captured step): K1 once a step each
                 way, K3 twice a step (scale@3 and brightness@5, two
-                severity groups) and K4 73 times a step (after the
-                dataset's 8 draw passes) by replay, and K4's 73 a step
-                again over 10 replays alone; the graphed ``evaluate``
-                styled on the card (K3 and K2f twice a batch, K4 73 times,
-                finite MIG and MSE);
+                severity groups), K4 73 times a step (after the
+                dataset's 8 draw passes) and K5 once a step by replay, and
+                K4's 73 and K5's one a step again over 10 replays alone;
+                the graphed ``evaluate`` styled on the card (K3 and K2f
+                twice a batch, K4 73 times, K5 once, finite MIG and MSE);
                 no Poisson draw cut by its loop cap; 4 graphed steps equal
                 to the eager loop at 0.0 (``cudnn.deterministic``); the
                 fit's captured step replayed and profiled (wall, device
@@ -315,6 +322,10 @@ K4_DRAWS_PASSES = 8
 # throughput table, compute capability 9.0), 132 SMs at 1.98 GHz
 K4_OPS = 72
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
+K5_SOURCE = "clearvae_torch/csrc/glass_swap.cu"
+# glass_blur's severities K5 is held and timed at: 1,352 swaps an image
+# (severity 1, MNIST-C's default) and 800 (severity 5), at B = 128
+K5_SEVERITIES = (1, 5)
 DOWNSTREAM_ARGS = ["--style_on_device", "--k_min", "5",
                    "--k_max", "5", "--seed", "0", "--epochs", "2",
                    "--n_train", "20000", "--n_test", "4000",
@@ -741,29 +752,32 @@ def phase_style_kernel():
 
 
 # the launch counters read on each path: the fused-loss kernels', K3's
-# (``style_batch``) and K4's (``threefry``)
-COUNTED = (*REPLACES, "style_batch", "threefry")
+# (``style_batch``), K4's (``threefry``) and K5's (``glass``)
+COUNTED = (*REPLACES, "style_batch", "threefry", "glass")
 
 
 def _zero_launches() -> None:
     from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import glass as K5
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.ops.kernels import threefry as K4
 
     FL.reset_launches()
     K3.reset_launches()
     K4.reset_launches()
+    K5.reset_launches()
 
 
 def _launches() -> dict:
     """{kernel: launches} since ``_zero_launches``, by ``COUNTED``'s
     names."""
     from clearvae_torch.ops.kernels import fused_loss as FL
+    from clearvae_torch.ops.kernels import glass as K5
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.ops.kernels import threefry as K4
 
     return {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"],
-            "threefry": K4.LAUNCHES["threefry"]}
+            "threefry": K4.LAUNCHES["threefry"], "glass": K5.LAUNCHES["glass"]}
 
 
 def k4_bound(passes):
@@ -878,6 +892,73 @@ def phase_threefry():
           f"{p1:.4f}/{p2:.4f} ms, bound {bms:.6f} ms ({by}): "
           f"{100 * bms * 1e3 / dus:.1f} % of the device time")
     return alone, batch
+
+
+def phase_glass():
+    """K5 against its plain twin on the card, bit for bit, on the operands
+    glass_blur hands it (recorded from the call) at ``K5_SEVERITIES`` on a
+    B = 128 batch, in place and into ``out=``, one launch and one kernel a
+    call; the kernel and the twin timed, and one glass_blur call's kernels
+    and device time; returns {severity: timings}."""
+    from clearvae_torch.data.mnist import synthetic_mnist
+    from clearvae_torch.ops import corruptions as TC
+    from clearvae_torch.ops import prng as P
+    from clearvae_torch.ops.kernels import glass as K5
+
+    dev = torch.device("cuda")
+    b = 128
+    x = torch.as_tensor(synthetic_mnist(b, seed=0)[0], device=dev)
+    keys = tuple(k.to(dev) for k in P.fold_in(
+        P.key(0, (b,)), torch.arange(b, dtype=torch.int32)))
+    timings = {}
+    for sev in K5_SEVERITIES:
+        calls = []
+
+        def record(img, deltas, do_swap, base, out=None):
+            calls.append((img.clone(), deltas, do_swap, base))
+            return K5.glass_swaps(img, deltas, do_swap, base, out=out)
+
+        TC.glass_swaps = record
+        try:
+            TC.glass_blur(x, keys, sev)
+        finally:
+            TC.glass_swaps = K5.glass_swaps
+        img, deltas, do_swap, base = calls[0]
+        n = base.shape[0]
+        want = K5.glass_swaps_plain(*(t.cpu() for t in calls[0]))
+        K5.reset_launches()
+        inplace = img.clone()
+        K5.glass_swaps(inplace, deltas, do_swap, base)
+        buf = torch.full_like(img, -1.0)
+        K5.glass_swaps(img, deltas, do_swap, base, out=buf)
+        torch.cuda.synchronize()
+        if K5.LAUNCHES["glass"] != 2:
+            fail(f"K5 severity {sev}: {K5.LAUNCHES['glass']} launches in two "
+                 f"calls")
+        if not (torch.equal(inplace.cpu(), want)
+                and torch.equal(buf.cpu(), want)):
+            fail(f"K5 severity {sev} at B={b}: not bit-equal to its plain "
+                 f"twin")
+        kern = lambda: K5.glass_swaps(img, deltas, do_swap, base,  # noqa: E731
+                                      out=buf)
+        plain = lambda: K5.glass_swaps_plain(img.clone(), deltas,  # noqa: E731
+                                             do_swap, base)
+        p1, t1, t2, p2 = (cuda_ms(plain, iters=3, warmup=1), cuda_ms(kern),
+                          cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1))
+        dus, n_k = device_us(kern)
+        if n_k != 1:
+            fail(f"K5 severity {sev}: {n_k} kernels a call, not one")
+        blur_us, blur_k = device_us(lambda: TC.glass_blur(x, keys, sev), n=10)
+        timings[sev] = dict(swaps=n, ms=min(t1, t2), plain_ms=min(p1, p2),
+                            device_us=dus, glass_blur_device_us=blur_us,
+                            glass_blur_kernels=blur_k)
+        print(f"[kernels] glass_swaps severity {sev} ({n} swaps an image, "
+              f"B={b}): bit-equal to its plain twin; kernel {t1:.4f}/"
+              f"{t2:.4f} ms (events), device {dus:.2f} us/call, plain "
+              f"{p1:.3f}/{p2:.3f} ms; one glass_blur call {blur_us:.2f} "
+              f"device us in {blur_k:g} kernels; bound: the serial chain of "
+              f"{n} swaps, not bytes or FLOPs")
+    return timings
 
 
 def k3_launches_expected(styles, batches) -> int:
@@ -1007,6 +1088,9 @@ def phase_main(gpu):
     if K4.LAUNCHES["threefry"] != k4_materialize:
         fail(f"K4 launched {K4.LAUNCHES['threefry'] - k4_materialize} times "
              f"in the fit and evaluate of materialized data")
+    k5 = _launches()["glass"]
+    if k5:
+        fail(f"K5 launched {k5} times on the six styles' path")
     print(f"[main] {n_steps} train steps; loss {hist['loss'][0]:.3f} -> "
           f"{hist['loss'][-1]:.3f}; eval MIG {mig:.4f}, MSE {mse:.3f} "
           f"({eval_s:.2f} s)")
@@ -1015,7 +1099,7 @@ def phase_main(gpu):
     print(f"[main] launches: {launches}")
     _profile_steps(trainer, train_ds, bs, "[profile] CLEAR fused")
     return ({**launches, "style_batch": k3_materialize,
-             "threefry": k4_materialize}, (train_ds, valid_ds))
+             "threefry": k4_materialize, "glass": k5}, (train_ds, valid_ds))
 
 
 def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
@@ -1160,8 +1244,9 @@ def phase_adversarial(gpu, train_ds, valid_ds):
             fail(f"{name}: K2f/K2b launched {launches['snn_fwd']}/"
                  f"{launches['snn_bwd']} times in {n_steps} fused train steps")
         if launches["clear_latent_fwdgrad"] or launches["clear_latent_bwd"] \
-                or launches["style_batch"] or launches["threefry"]:
-            fail(f"{name}: K1, K3 or K4 launched on the adversarial path: "
+                or launches["style_batch"] or launches["threefry"] \
+                or launches["glass"]:
+            fail(f"{name}: K1, K3, K4 or K5 launched on the adversarial path: "
                  f"{launches}")
         print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s "
               f"({n_steps * bs / fit_s:.1f} images/sec, warm-up included); "
@@ -1341,7 +1426,7 @@ def phase_graph(gpu, train_ds, valid_ds, here):
                      "snn_fwd": 0, "snn_bwd": 0} if name == "clear" else
                     {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
                      "snn_fwd": n_g, "snn_bwd": n_g})
-            want["style_batch"] = want["threefry"] = 0
+            want["style_batch"] = want["threefry"] = want["glass"] = 0
             if lg != want or le != want:
                 fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
                      f"expected {want}")
@@ -1398,6 +1483,7 @@ def phase_graph(gpu, train_ds, valid_ds, here):
         styled = fit_kw.get("style_on_device", False)
         want["style_batch"] = n_g if styled else 0   # one severity group
         want["threefry"] = 0   # the six styles' draws were made in phase 3
+        want["glass"] = 0      # and none of them is glass_blur
         if lg != le or {k: lg[k] for k in want} != want:
             fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
                  f"expected {want}")
@@ -1469,10 +1555,12 @@ def _styled_replays(trainer, train_ds, gpu, n: int = 20):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    if K3.LAUNCHES["style"] != len(rows) or K4.LAUNCHES["threefry"]:
-        fail(f"K3 launched {K3.LAUNCHES['style']} times and K4 "
-             f"{K4.LAUNCHES['threefry']} by replay in {len(rows)} styled "
-             f"replays (six styles: K3 once a replay, K4 never)")
+    k5 = _launches()["glass"]
+    if K3.LAUNCHES["style"] != len(rows) or K4.LAUNCHES["threefry"] or k5:
+        fail(f"K3 launched {K3.LAUNCHES['style']} times, K4 "
+             f"{K4.LAUNCHES['threefry']} and K5 {k5} by replay in {len(rows)} "
+             f"styled replays (six styles: K3 once a replay, K4 and K5 "
+             f"never)")
     sub = rows[:n]
     ep.run(sub)
     torch.cuda.synchronize()
@@ -1508,7 +1596,8 @@ def _styled_replays(trainer, train_ds, gpu, n: int = 20):
     busy = sum(by_name.values()) / 1e3 / n
     style_ms = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
     print(f"[graph] styled fit: {len(rows)} replays with no synchronizing call "
-          f"(sync debug mode 'error'); K3 {len(rows)} and K4 0 by replay; "
+          f"(sync debug mode 'error'); K3 {len(rows)}, K4 and K5 0 by "
+          f"replay; "
           f"device trace "
           f"of {n} inspected replays: {k3} style_kernel, one in each; styled "
           f"graphed step (fused, "
@@ -1702,6 +1791,9 @@ def phase_downstream(gpu, here):
     if k4 == 0 or k4 % K4_DRAWS_PASSES:
         fail(f"K4 launched {k4} times on the downstream path, not a "
              f"multiple of a dataset's {K4_DRAWS_PASSES} draw passes")
+    k5 = _launches()["glass"]
+    if k5:
+        fail(f"K5 launched {k5} times on the six styles' downstream path")
 
     want = _expected_downstream_k3(rec)
     if launches != want:
@@ -1777,7 +1869,7 @@ def phase_downstream(gpu, here):
     print(f"[downstream] launches: style_batch {launches} (expected {want}); "
           f"{other}")
     _profile_styled_steps(clear, clear_fit["args"]["train_ds"])
-    return {**other, "style_batch": launches, "threefry": k4}
+    return {**other, "style_batch": launches, "threefry": k4, "glass": k5}
 
 
 def _run_mig_sweep(out_dir):
@@ -1828,6 +1920,9 @@ def phase_mig(gpu, here):
           f"1 epoch)")
     rec, wall, launches, data, start = _run_mig_sweep(out_dir)
     k3 = launches["style_batch"]
+    if launches["glass"]:
+        fail(f"K5 launched {launches['glass']} times on the six styles' "
+             f"sweep")
     other = {k: launches[k] for k in REPLACES}
     trainers = [c["args"]["self"] for c in rec.calls["fit"]]
     if len(trainers) != len(MIG_ZOO):
@@ -2041,7 +2136,7 @@ def phase_sixty_four(gpu, here):
         fail(f"VAE64 CLEAR: {eager.train_step.step} eager and {n} graphed "
              f"updates")
     want = {"clear_latent_fwdgrad": n, "clear_latent_bwd": n, "snn_fwd": 0,
-            "snn_bwd": 0, "style_batch": 0, "threefry": 0}
+            "snn_bwd": 0, "style_batch": 0, "threefry": 0, "glass": 0}
     if lg != want or le != want:
         fail(f"VAE64 CLEAR: launches eager {le}, graphed (replays) {lg}; "
              f"expected {want}")
@@ -2083,7 +2178,7 @@ def phase_sixty_four(gpu, here):
                         train, 1)
     n = tc.train_step.step
     want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0, "snn_fwd": n,
-            "snn_bwd": n, "style_batch": 0, "threefry": 0}
+            "snn_bwd": n, "style_batch": 0, "threefry": 0, "glass": 0}
     if lt != want or not all(np.isfinite(v).all() for h in tc.history
                              for v in h.values()):
         fail(f"VAE64 CLEAR-TC: launches {lt}, expected {want}; or a "
@@ -2344,6 +2439,7 @@ def phase_artifacts(gpu, here):
     k3 = K3.LAUNCHES["style"]
     total["style_batch"] += k3
     total["threefry"] += K4.LAUNCHES["threefry"]
+    total["glass"] += _launches()["glass"]
     if k3 == 0 or any(FL.LAUNCHES.values()):
         fail(f"illustrate launched K3 {k3} times, fused losses {FL.LAUNCHES}")
     for name, g in grids.items():
@@ -2476,16 +2572,18 @@ def phase_corruptions(gpu):
     t_fit = time.perf_counter() - t0
     steps = trainer.train_step.step
     n_batches = CORR_EPOCHS * (len(train_ds) // 128)
-    # K4: the dataset's draws, then every threefry pass of each step
+    # K4: the dataset's draws, then every threefry pass of each step; K5
+    # once a step (glass_blur)
     want = {"clear_latent_fwdgrad": steps, "clear_latent_bwd": steps,
             "snn_fwd": 0, "snn_bwd": 0,
             "style_batch": k3_launches_expected(styles, [range(128)] * steps),
-            "threefry": K4_DRAWS_PASSES + K4_BATCH_PASSES * steps}
+            "threefry": K4_DRAWS_PASSES + K4_BATCH_PASSES * steps,
+            "glass": steps}
     if steps != n_batches or launches != want or want["style_batch"] != 2 * steps:
         fail(f"MNIST-C styled fit: {steps} updates ({n_batches} batches), "
              f"launches by replay {launches}, expected {want} (K3 twice a "
              f"batch: scale@3 and brightness@5; K4 {K4_BATCH_PASSES} a batch "
-             f"after the draws' {K4_DRAWS_PASSES})")
+             f"after the draws' {K4_DRAWS_PASSES}; K5 once a batch)")
     hist = np.concatenate([h["loss"] for h in trainer.history])
     if not np.isfinite(hist).all():
         fail("MNIST-C styled fit: non-finite loss")
@@ -2500,10 +2598,12 @@ def phase_corruptions(gpu):
     ev = _launches()
     if (ev["style_batch"] != 2 * n_eval or ev["snn_fwd"] != 2 * n_eval
             or ev["threefry"] != K4_DRAWS_PASSES + K4_BATCH_PASSES * n_eval
+            or ev["glass"] != n_eval
             or not (math.isfinite(mig) and math.isfinite(mse))):
         fail(f"MNIST-C styled evaluate: launches {ev} for {n_eval} batches "
              f"(K3 and K2f twice a batch, K4 {K4_BATCH_PASSES} a batch after "
-             f"the draws' {K4_DRAWS_PASSES}), MIG {mig}, MSE {mse}")
+             f"the draws' {K4_DRAWS_PASSES}, K5 once a batch), MIG {mig}, "
+             f"MSE {mse}")
     for k, v in ev.items():
         total[k] += v
     # (e) no Poisson draw of shot_noise was cut by its loop cap
@@ -2536,7 +2636,7 @@ def phase_corruptions(gpu):
     # the eager fit made sub's draws; the graphed one finds them made
     if le != {**lg, "threefry": lg["threefry"] + K4_DRAWS_PASSES} or \
             lg["threefry"] != K4_BATCH_PASSES * (n // 128) or \
-            graphed.train_step.step != n // 128:
+            lg["glass"] != n // 128 or graphed.train_step.step != n // 128:
         fail(f"MNIST-C styled fit: launches eager {le}, graphed {lg}")
     print(f"[corruptions] {n // 128} graphed steps == eager: histories and "
           f"state equal, max abs diff {diff:.1e} (cudnn.deterministic); "
@@ -2555,8 +2655,13 @@ def phase_corruptions(gpu):
     if K4.LAUNCHES["threefry"] != K4_BATCH_PASSES * len(rows):
         fail(f"K4 launched {K4.LAUNCHES['threefry']} times by replay in "
              f"{len(rows)} MNIST-C replays, not {K4_BATCH_PASSES} a step")
+    k5 = _launches()["glass"]
+    if k5 != len(rows):
+        fail(f"K5 launched {k5} times by replay in {len(rows)} MNIST-C "
+             f"replays, not once a step")
     print(f"[corruptions] K4 by replay: {K4.LAUNCHES['threefry']} in "
-          f"{len(rows)} replays of the MNIST-C step ({K4_BATCH_PASSES} a step)")
+          f"{len(rows)} replays of the MNIST-C step ({K4_BATCH_PASSES} a "
+          f"step); K5 {k5} (one a step)")
     t0 = time.perf_counter()
     ep.run(rows)
     torch.cuda.synchronize()
@@ -2879,6 +2984,7 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
                     "clear_latent_bwd": n * fused, "snn_fwd": 0,
                     "snn_bwd": 0,
                     "style_batch": n * bool(fit_kw), "threefry": 0,
+                    "glass": 0,
                     "all_reduce": n * _collectives_per_step(False, tp)}
             if n != ADV_STEPS // 2 or le != want or lg != {
                     **want, "all_reduce": want["all_reduce"] + 1}:
@@ -2928,6 +3034,7 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
         n = tc.train_step.step
         want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
                 "snn_fwd": n, "snn_bwd": n, "style_batch": 0, "threefry": 0,
+                "glass": 0,
                 "all_reduce": 1 + n * _collectives_per_step(True, tp)}
         if lt != want:
             fail(f"{mesh_name} clear-tc fused: launches by replay {lt}, "
@@ -3011,6 +3118,7 @@ def _phase_parallel_other_models(gpu, train_ds):
         want = {"clear_latent_fwdgrad": steps * vae,
                 "clear_latent_bwd": steps * vae, "snn_fwd": 0, "snn_bwd": 0,
                 "style_batch": steps * bool(fit_kw), "threefry": 0,
+                "glass": 0,
                 "all_reduce": steps * _bn_collectives(
                     graphed, passes, gathers, mesh_name != "make_mesh(1)")}
         # the graphed fit adds the warm-up's one collective
@@ -3342,6 +3450,7 @@ def main():
     errs, times = phase_kernels()
     k3_err, k3_times = phase_style_kernel()
     k4_alone, k4_batch = phase_threefry()
+    k5 = phase_glass()
     launches, (train_ds, valid_ds) = phase_main(gpu)
     adv = phase_adversarial(gpu, train_ds, valid_ds)
     graph = phase_graph(gpu, train_ds, valid_ds, here)
@@ -3364,7 +3473,8 @@ def main():
     # fit, its draws and 73 passes a step)
     own = {"clear_latent_fwdgrad": "main", "clear_latent_bwd": "main",
            "snn_fwd": "adversarial", "snn_bwd": "adversarial",
-           "style_batch": "downstream", "threefry": "corruptions"}
+           "style_batch": "downstream", "threefry": "corruptions",
+           "glass": "corruptions"}
     for name, path in own.items():
         if by_path[name][path] == 0:
             fail(f"{name} was launched no time on the {path} path")
@@ -3407,6 +3517,13 @@ def main():
                         launches=by_path["threefry"]["corruptions"],
                         max_abs_err=0.0, **k4_alone, library_ms=None,
                         launches_by_path=by_path["threefry"]))
+    kernels.append(dict(name="glass", route="cuda", source=K5_SOURCE,
+                        replaces=None, launches=by_path["glass"]["corruptions"],
+                        max_abs_err=0.0, ms=k5[1]["ms"],
+                        plain_ms=k5[1]["plain_ms"], bound_ms=None,
+                        bound_by="the serial chain of swaps",
+                        device_us=k5[1]["device_us"], library_ms=None,
+                        launches_by_path=by_path["glass"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
           f"(phases 1-11, the build included)")
     print(gpu)
@@ -3419,7 +3536,8 @@ def main():
                       "parallel_cnn_lam_vae64_all_reduce":
                           par["other"]["all_reduce"],
                       "bench28_k1": par["bench_k1"],
-                      "threefry_mnistc_batch": k4_batch}))
+                      "threefry_mnistc_batch": k4_batch,
+                      "glass_by_severity": k5}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,6 +39,7 @@ from clearvae_torch.ops.image import (affine_warp, bilinear_sample,
                                       hsv_to_rgb, line_from_points,
                                       plasma_fractal, resize_area,
                                       rgb_to_gray)
+from clearvae_torch.ops.kernels.glass import glass_swaps
 from clearvae_torch.ops.kernels.style import (DEFAULT_SEVERITY, STYLE_CODES,
                                               style_batch_kernel)
 
@@ -157,14 +158,14 @@ def _glass_swap_coords(max_delta: int, iterations: int, size: int = 28):
 def glass_blur(x, keys, severity=1):
     """Gaussian blur + local random pixel swaps + blur (reference
     corruptions.py:284-301). The swaps run in the reference's raster order,
-    one step per coordinate (1,352 at severity 1), each a gather and two
-    writes over the batch's flat rows: sequential, as JAX's lax.scan."""
+    one step per coordinate (1,352 at severity 1), sequential as JAX's
+    lax.scan: ``glass_swaps``, one K5 launch for the batch on a card."""
     sigma, max_delta, iterations = \
         [(0.7, 1, 2), (0.9, 2, 1), (1, 2, 3), (1.1, 3, 2), (1.5, 4, 2)][severity - 1]
     x = gaussian_filter(_as01(x), float(sigma))
     b, h, w = x.shape
     # the reference's uint8 round trip truncates
-    flat = torch.floor(torch.clamp(x * 255.0, 0, 255)).reshape(b, h * w)
+    img = torch.floor(torch.clamp(x * 255.0, 0, 255)).contiguous()
     coords = _glass_swap_coords(max_delta, iterations, h)
     n = len(coords)
     k1, k2 = P.split(keys)
@@ -172,15 +173,8 @@ def glass_blur(x, keys, severity=1):
     deltas = P.randint(k2, -max_delta, max_delta, (n, 2))   # (dx, dy)
     base = constant(("glass", max_delta, iterations, h), x.device,
                     lambda: coords[:, 0] * w + coords[:, 1])
-    partner = base + deltas[..., 1] * w + deltas[..., 0]    # [B, n]
-    for j, (r, c) in enumerate(coords.tolist()):
-        p, q = r * w + c, partner[:, j:j + 1]
-        a, bv = flat[:, p:p + 1], flat.gather(1, q)
-        s = do_swap[:, j:j + 1]
-        new_p, new_q = torch.where(s, bv, a), torch.where(s, a, bv)
-        flat[:, p:p + 1] = new_p
-        flat.scatter_(1, q, new_q)
-    return _to255(gaussian_filter(flat.reshape(b, h, w) / 255.0, float(sigma)))
+    glass_swaps(img, deltas, do_swap, base)
+    return _to255(gaussian_filter(img / 255.0, float(sigma)))
 
 
 def _cv2_gaussian_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:

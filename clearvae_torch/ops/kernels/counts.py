@@ -1,11 +1,10 @@
 """The program's counters under a captured CUDA graph.
 
 Each kernel wrapper adds one to its counter (``fused_loss.LAUNCHES``,
-``style.LAUNCHES``, ``threefry.LAUNCHES``) where it launches its kernel,
-and the mesh's collectives to ``parallel.mesh.COLLECTIVES`` where they are
-issued; all are counters of the tracer's registry (``utils/logging.py``).
-Under stream
-capture a call launches nothing: it records the kernel into the graph,
+``style.LAUNCHES``, ``threefry.LAUNCHES``, ``glass.LAUNCHES``) where it
+launches its kernel, and the mesh's collectives to
+``parallel.mesh.COLLECTIVES`` where they are issued; all are counters of
+the tracer's registry (``utils/logging.py``). Under stream capture a call launches nothing: it records the kernel into the graph,
 which launches it on every replay. ``GraphLaunches`` moves whatever any
 registered counter counted during a capture to the replays, so the
 counters keep counting launches on the card.
