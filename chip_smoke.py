@@ -47,9 +47,7 @@ Phases, each fatal on failure:
                 launch counters are zeroed just before and read just after
                 (K1's forward and backward kernels once per train step, K2f
                 twice per eval batch, counted by replay); one step is also
-                checked fused against unfused on the card. Then an eager
-                train step is timed and profiled: wall and device-busy ms
-                per step, idle share, kernels per step.
+                checked fused against unfused on the card.
 5. adversarial — CLEAR-TC and CLEAR-MIM (CLUB-S) at the flagship widths
                 through ``get_cleartcvae_trainer`` / ``get_clearmimvae_trainer``
                 with ``hyperparameter={"fused": True}`` (λ = 1, factor Adam
@@ -59,8 +57,7 @@ Phases, each fatal on failure:
                 read after: K2f (c_loss forward) and K2b (its backward) once
                 per train step, by replay, K1 never; the eval is unfused, as
                 in JAX. One step of each is checked fused against unfused on
-                the card, and an eager train step of each is timed and
-                profiled.
+                the card.
 4. downstream — the Styled-MNIST downstream experiment through its entry
                 point, ``styledmnist_downstream.main`` with
                 ``--style_on_device --k_min 5 --k_max 5``: all seven zoo
@@ -77,9 +74,7 @@ Phases, each fatal on failure:
                 launches, by replay inside the graphs, must equal one per
                 styled batch and chunk and severity group, which the phase
                 counts itself; the zoo is unfused, so K1/K2f/K2b must not
-                launch. Then a styled CLEAR train step is profiled, eager
-                and graphed: K3's and styling's share of it, and styling's
-                kernels and host syncs a batch.
+                launch.
 
 6. mig        — the Styled-MNIST MIG/ELBO sweep through its entry point,
                 ``mig_expr.main`` at the flagship widths (z = 16, batch 128,
@@ -130,11 +125,9 @@ Phases, each fatal on failure:
                 ``with_evidence_acc``, each with a ragged tail: MIG, MSE and
                 every per-batch mean equal. Then ``epochs_per_scan=2``: one
                 history block of the last batch of each epoch, equal to the
-                one-step graph's fit exactly. Then, through
-                ``bench.time_steps``, eager and graphed steps in turns
-                (wall, device busy, idle share, kernels a step,
-                images/sec) and the fused-loss kernels counted by name in
-                the device trace of 20 replays.
+                one-step graph's fit exactly. Then the fused-loss kernels
+                counted by name in the device trace of 20 replays of the
+                graphed CLEAR, CLEAR-TC and CLEAR-MIM fits' steps.
 
 8. sixty-four — the 64×64 family at the runners' widths (VAE64, z = 64,
                 B = 128, β = 1/32, τ = 0.1, α = 100, Adam 3e-5) on synthetic
@@ -144,17 +137,14 @@ Phases, each fatal on failure:
                 hyperparameter={"fused": True})``) fit 2 epochs eagerly and
                 graphed under ``cudnn.deterministic``, equal at 0.0, K1's
                 forward and backward once a step by replay, then the graphed
-                ``evaluate`` (K2f twice a batch, finite MIG and MSE); its
-                steps timed by ``bench.time_steps`` (wall, device busy, idle
-                share, kernels a step, images/sec, FLOP share) with the K1
-                kernel of the trace the ``<32, true>`` instance and the top
-                device kernels of a graphed step; fused CLEAR-TC 1 epoch
+                ``evaluate`` (K2f twice a batch, finite MIG and MSE); the
+                K1 kernel in the device trace of a replay the ``<32,
+                true>`` instance; fused CLEAR-TC 1 epoch
                 (K2f = K2b = 1 a step by replay); LAM-CNN64 fit graphed and
                 eagerly, equal at 0.0, and an epoch of its replays under
                 ``set_sync_debug_mode("error")``; the perf mode (bf16 conv
-                stacks, fused heads) fit and evaluated, finite, and timed;
-                ``bench.py``'s ``vae64_clear`` and ``vae64_bf16_b256`` rows;
-                then the runners through their ``main`` at cut depth
+                stacks, fused heads) fit and evaluated, finite; then the
+                runners through their ``main`` at cut depth
                 (``RUNNERS64``: CelebA k = 1, 2 epochs, seven entries;
                 Camelyon17 1 epoch, eight with the LAM-CNN; PACS and CheXpert
                 k = 1, 1 epoch, clear and baseline; the CelebA MIG/ELBO sweep
@@ -201,9 +191,7 @@ Phases, each fatal on failure:
                 the graphed ``evaluate`` styled on the card (K3 and K2f
                 twice a batch, K4 73 times, K5 once, finite MIG and MSE);
                 no Poisson draw cut by its loop cap; 4 graphed steps equal
-                to the eager loop at 0.0 (``cudnn.deterministic``); the
-                fit's captured step replayed and profiled (wall, device
-                busy, idle share, kernels a step, images/sec).
+                to the eager loop at 0.0 (``cudnn.deterministic``).
 
 11. parallel — data and tensor parallelism (``clearvae_torch/parallel``)
                 at the flagship widths on phase 3's data. (a) One rank
@@ -229,11 +217,8 @@ Phases, each fatal on failure:
                 epoch of 1,024 images each, eager and graphed at 0.0, K1
                 (VAE64: its ``<32, true>`` instance in a replay's trace),
                 K3 (styled) and the all-reduces by replay (their own
-                ``launches_by_path`` entry); after (b), the fused step
-                timed on ``make_mesh(1)`` (``bench.time_steps``; phase 7
-                times it without a mesh), and the SimpleCNN, LAM-CNN and
-                VAE64 steps on ``make_mesh(1)`` beside their no-mesh twins.
-                A one-rank mesh runs every collective. (b) Two ranks on
+                ``launches_by_path`` entry). A one-rank mesh runs every
+                collective. (b) Two ranks on
                 the one card over gloo, child processes of this
                 script with ``CLEARVAE_TORCH_NO_LOCK=1`` (they share the
                 card on purpose; this process holds the lock): one eager
@@ -245,12 +230,11 @@ Phases, each fatal on failure:
                 the largest; VAE64's tensor by tensor in L2, see
                 ``PAR_V64_L2_RTOL``; parameters within max(1e-3·max|a|,
                 1.2e-3); TC rtol 2e-4), both ranks' parameters equal at
-                0.0. (c) The root bench's four 28×28
-                perf rows (``clear_28_bf16``, ``clear_28_fusedheads``,
-                ``perf_mode_b2048_bf16``, ``perf_mode_b512_bf16_fusedheads``)
-                through ``bench.time_steps``: images/sec, device-busy ms,
-                idle share and FLOP share a turn, K1 counted at B = 512
-                and 2,048.
+                0.0. (c) The 28×28 perf-mode trainers of the root
+                bench's rows (``PERF28``: bf16 conv stacks and/or the four
+                heads in one Linear, at B = 128, 512 and 2,048), fused, fit
+                2 epochs graphed on phase 3's data without a mesh: K1 once
+                a step each way by replay, at B = 512 and 2,048 too.
 
 Phases run in the order 1, 2, 3, 5, 7, 4, 6, 8, 9, 10, 11 (phases 5, 7 and
 11 train on phase 3's data; phase 9 reads phase 4's result).
@@ -259,10 +243,15 @@ It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero
 without that line when there is no CUDA device or no ``clearvae_torch``
 beside it. Imports nothing of JAX.
+
+It times kernels alone (phase 2) and no train step: the port's step
+throughput is ``portbench``'s (``python3 -m portbench.run --workload
+<cell>``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -381,7 +370,6 @@ CORR_BARS = {"line": (5e-3, 0.0), "dotted_line": (5e-3, 0.0),
              "shot_noise": (1e-3, 0.002)}
 CORR_DEFAULT_BAR = (1e-3, 0.0)
 N64 = 2048              # synthetic CelebA images, the runners' default
-STEPS64 = 12            # steps a turn of bench.time_steps (12·128 ≤ 1,740)
 # each runner: its module, its arguments (depth cut), its result file, and
 # the zoo entries it must write (None: its whole zoo)
 RUNNERS64 = [
@@ -486,21 +474,64 @@ def bound(name: str, b: int, z: int, label, ps: bool):
     return (t[unit] * 1e3, "bytes" if unit == "bytes" else "operations", unit)
 
 
+SETTLE_S = 0.02
+
+
+@contextlib.contextmanager
+def profile_window():
+    """``torch.profiler.profile`` of CPU and CUDA activity around a block
+    that starts and ends ``SETTLE_S`` inside the window, the device idle
+    at both edges. Kernels run right after the profiler started were
+    missing from its traces on the card (one K3 of 20 graph replays, one
+    of ten K2b calls); the trace drops device events it places outside its
+    window, and the card's clock is matched to the host's only so far, so
+    the block keeps away from the edges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+
+
+def device_kernels(prof) -> tuple[dict, dict, float]:
+    """({kernel name: launches}, {kernel name: device us}, device-busy us)
+    of a profile. Device copies and fills (``Memcpy``, ``Memset``) are busy
+    time but not kernels. Host ranges that the profiler mirrors onto the
+    device timeline (a record_function range such as
+    Optimizer.step#Adam.step spans kernels) and user annotations are
+    neither."""
+    from torch.autograd import DeviceType
+
+    host = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    counts: dict = {}
+    us: dict = {}
+    busy = 0.0
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.is_user_annotation
+                or e.name in host):
+            continue
+        busy += e.time_range.elapsed_us()
+        if not e.name.startswith(("Memcpy", "Memset")):
+            counts[e.name] = counts.get(e.name, 0) + 1
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return counts, us, busy
+
+
 def device_us(fn, n: int = 50):
     """(device us per call, kernels per call) of fn from torch.profiler:
     the summed durations of the kernels (not copies) that n calls launched."""
-    from clearvae_torch.bench import profile_window
-
     fn()
     torch.cuda.synchronize()
     with profile_window() as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name, counts = _device_kernels(prof, counts=True)
-    names = [k for k in by_name if not k.startswith(("Memcpy", "Memset"))]
-    return (sum(by_name[k] for k in names) / n,
-            sum(counts[k] for k in names) / n)
+    counts, us, _ = device_kernels(prof)
+    return sum(us.values()) / n, sum(counts.values()) / n
 
 
 def kernels_per_call(fn, n: int = 10, tries: int = 3) -> float:
@@ -1017,7 +1048,7 @@ def _step_check(dev, tag, build, x_shape, n_class: int, beta: float,
     print(f"{tag} one step (B={b}, z={2 * base.z_dim}) fused == unfused on "
           f"the card; params max |diff| {worst:.2e}: {mf}")
 
-def phase_main(gpu):
+def phase_main():
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist, train_valid_split
     from clearvae_torch.models.vae import VAE
@@ -1056,14 +1087,10 @@ def phase_main(gpu):
                                    hyperparameter={"fused": True},
                                    device="cuda")
     bs = 128
-    steps_per_epoch = len(train_ds) // bs
     FL.reset_launches()
-    rates = []
     for epoch in range(2):
-        t0 = time.perf_counter()
         trainer.fit(1, train_ds, batch_size=bs, start_epoch=epoch)
-        torch.cuda.synchronize()
-        rates.append(steps_per_epoch * bs / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     mig, mse = trainer.evaluate(valid_ds, batch_size=bs)
     eval_s = time.perf_counter() - t0
@@ -1094,51 +1121,9 @@ def phase_main(gpu):
     print(f"[main] {n_steps} train steps; loss {hist['loss'][0]:.3f} -> "
           f"{hist['loss'][-1]:.3f}; eval MIG {mig:.4f}, MSE {mse:.3f} "
           f"({eval_s:.2f} s)")
-    print(f"[main] images/sec: epoch 1 {rates[0]:.1f} (with warm-up), "
-          f"epoch 2 {rates[1]:.1f}; {gpu}")
     print(f"[main] launches: {launches}")
-    _profile_steps(trainer, train_ds, bs, "[profile] CLEAR fused")
     return ({**launches, "style_batch": k3_materialize,
              "threefry": k4_materialize, "glass": k5}, (train_ds, valid_ds))
-
-
-def _profile_steps(trainer, train_ds, bs, tag, n: int = 20):
-    """Where a train step's time goes, after its path's launch counts are
-    read: wall ms per step over n steps without the profiler, device-busy
-    ms per step from torch.profiler over n more, the idle share of the
-    unprofiled wall, kernels per step, the fused-loss kernels' (K1 forward
-    and backward, K2f and K2b, all named clear_latent_*) device ms and
-    share, and the top kernels."""
-    from clearvae_torch.bench import profile_window
-
-    data, labels = trainer._device_data(train_ds)
-    idx = torch.arange(bs, device=data.device)
-    x, lbl = data[idx], labels[idx]
-
-    def steps():
-        t0 = time.perf_counter()
-        for _ in range(n):
-            trainer.train_step(x, lbl, trainer._train_noise(bs))
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
-
-    steps()  # warm-up
-    wall_ms = steps()
-    with profile_window() as prof:
-        prof_wall_ms = steps()
-    by_name, n_kernels = _device_kernels(prof)
-    if not by_name:
-        fail("the profiler recorded no device activity")
-    busy_ms = sum(by_name.values()) / 1e3 / n
-    fused = sum(v for k, v in by_name.items()
-                if "clear_latent_" in k) / 1e3 / n
-    print(f"{tag} train step (B={bs}): wall {wall_ms:.3f} ms "
-          f"({prof_wall_ms:.3f} ms under the profiler), device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{n_kernels / n:.0f} kernels/step, fused-loss kernels "
-          f"{fused:.4f} ms/step ({fused / busy_ms:.4f} of the device time)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"{tag}   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
 
 
 def _adversarial_step_check(dev, b: int = 128):
@@ -1248,14 +1233,12 @@ def phase_adversarial(gpu, train_ds, valid_ds):
                 or launches["glass"]:
             fail(f"{name}: K1, K3, K4 or K5 launched on the adversarial path: "
                  f"{launches}")
-        print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s "
-              f"({n_steps * bs / fit_s:.1f} images/sec, warm-up included); "
+        print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s; "
               f"loss {hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f}; "
               f"eval MIG {mig:.4f}, MSE {mse:.3f} ({eval_s:.2f} s); "
               f"launches {launches}; {gpu}")
         for k in total:
             total[k] += launches[k]
-        _profile_steps(trainer, train_ds, bs, f"[profile] {name}")
     return total
 
 
@@ -1319,6 +1302,24 @@ def _graph_fit(factory, kw, train_ds, epochs, **fit_kw):
     return trainer, _launches()
 
 
+def _replay_kernels(trainer, n: int = 1) -> dict:
+    """{kernel name: launches} in ``n`` replays of the train step that
+    ``trainer``'s graphed fit captured, by the profiler (up to three
+    windows: one with no kernel is the profiler's loss)."""
+    ep = next(fn for key, (_, fn) in trainer._graphs.items()
+              if key[0] != "eval")
+    graph = ep.graph[0]
+    for _ in range(3):
+        with profile_window() as prof:
+            for _ in range(n):
+                graph.replay()
+        counts = device_kernels(prof)[0]
+        if counts:
+            return counts
+    fail(f"the profiler recorded no kernel in three windows of {n} replays "
+         f"of a captured step")
+
+
 def _same_training(tag, a, b, a_epochs=None, histories=True):
     """Fails unless trainer b's loss histories (with ``histories``) and
     final state equal a's (every module's state, max abs difference 0.0);
@@ -1370,31 +1371,7 @@ def _serve_check(trainer, ckpt_dir, x):
           f"{shapes}; reconstruct equals from_trainer's within {err:.2e}")
 
 
-def _time_steps(trainer, train_ds, tag, gpu, n: int = 20):
-    """Eager and graphed steps of one trainer on the same batches, in turns
-    (eager, graphed, graphed, eager), through ``bench.time_steps``, the
-    port's one step timer: wall ms a step, device-busy ms a step, idle
-    share, kernels a step, images/sec, and the kernels by name in the
-    profiled run of each mode (a Chrome trace of each under
-    .runs/chip_smoke_graph/)."""
-    from clearvae_torch.bench import time_steps
-
-    traces = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".runs",
-                          "chip_smoke_graph", f"trace_{tag.split()[0]}")
-    stats = time_steps(trainer, train_ds, n=n, trace_dir=traces)
-    for mode, r in stats.items():
-        if not r["kernels_by_name"]:
-            fail(f"{tag} {mode}: the profiler recorded no kernel")
-        print(f"[graph] {tag} {mode} step (B=128, {n} steps a turn): wall "
-              f"{'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, device busy "
-              f"{r['device_busy_ms']:.3f} ms, idle share "
-              f"{'/'.join(f'{s:.3f}' for s in r['idle_share'])}, "
-              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
-              f"{'/'.join(f'{i:.1f}' for i in r['images_per_sec'])}; {gpu}")
-    return stats
-
-
-def phase_graph(gpu, train_ds, valid_ds, here):
+def phase_graph(train_ds, valid_ds, here):
     """The graphed train step (``fit(use_scan=True)``, one captured CUDA
     graph a step) against the eager one, for the fused CLEAR, CLEAR-TC and
     CLEAR-MIM (CLUB-S) trainers on phase 3's data (see the module
@@ -1456,9 +1433,7 @@ def phase_graph(gpu, train_ds, valid_ds, here):
                 _serve_check(first, ck, x)
         finally:
             torch.backends.cudnn.deterministic = det
-        trainers[name] = factory(**ADV_COMMON, **kw)
-        if name == "clear":
-            clear_graphed = graphed
+        trainers[name] = graphed
     more = {}
     for name, (factory, kw, fit_kw) in _graph_more_runs().items():
         torch.backends.cudnn.deterministic = True
@@ -1493,23 +1468,23 @@ def phase_graph(gpu, train_ds, valid_ds, here):
               f"histories and final state equal, max abs diff {diff:.3e} "
               f"(cudnn.deterministic); launches {lg}")
         if styled:
-            _styled_replays(graphed, train_ds, gpu)
+            _styled_replays(graphed, train_ds)
         more[name] = graphed
     torch.backends.cudnn.deterministic = True
     try:
-        _eval_pairs(clear_graphed, more["clear styled on the card"],
+        _eval_pairs(trainers["clear"], more["clear styled on the card"],
                     more["gvae"], valid_ds)
-        _epochs_per_scan_fit(clear_graphed, train_ds)
+        _epochs_per_scan_fit(trainers["clear"], train_ds)
     finally:
         torch.backends.cudnn.deterministic = det
     per_step = {"clear": {"clear_latent_fwdgrad_kernel": 1,
                           "clear_latent_bwd_kernel": 1}}
     for name in ("clear-tc", "clear-mim (CLUB-S)"):   # K2f and K2b
         per_step[name] = {"clear_latent_fwdgrad_kernel": 2}
+    # last: the replays train the fits' trainers on
     for name, trainer in trainers.items():
-        stats = _time_steps(trainer, train_ds, name, gpu)
         seen = {}
-        for k, v in stats["graphed"]["kernels_by_name"].items():
+        for k, v in _replay_kernels(trainer, 20).items():
             for kname in per_step["clear"]:
                 if kname in k:
                     seen[kname] = seen.get(kname, 0) + v
@@ -1528,16 +1503,14 @@ def _epoch_rows(n: int, seed: int, bs: int = 128):
     return torch.as_tensor(perm[: nb * bs].reshape(nb, bs), device="cuda")
 
 
-def _styled_replays(trainer, train_ds, gpu, n: int = 20):
+def _styled_replays(trainer, train_ds, n: int = 20):
     """The styled graphed step (K3, zigzag and canny inside the graph) of a
     trainer that has fit: one epoch of its replays under
     ``set_sync_debug_mode("error")`` (a synchronizing call between the
     first and the last replay raises), K3's launches by replay (one a
-    step), then K3 by name in the device trace of n replays, and their
-    wall, device time and kernels a step."""
+    step), then K3 by name in the device trace of n replays."""
     from torch.autograd import DeviceType
 
-    from clearvae_torch.bench import profile_window
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.ops.kernels import threefry as K4
 
@@ -1561,13 +1534,6 @@ def _styled_replays(trainer, train_ds, gpu, n: int = 20):
              f"{K4.LAUNCHES['threefry']} and K5 {k5} by replay in {len(rows)} "
              f"styled replays (six styles: K3 once a replay, K4 and K5 "
              f"never)")
-    sub = rows[:n]
-    ep.run(sub)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ep.run(sub)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
     # one replay more than inspected: the first opens the trace and counts
     # for neither K1 nor K3. Each replay styles (K3) before its K1 forward
     # kernel, so each of the n inspected replays holds exactly one K3
@@ -1588,22 +1554,10 @@ def _styled_replays(trainer, train_ds, gpu, n: int = 20):
         fail(f"the device trace of {n} inspected styled replays holds K3 "
              f"kernels {per_replay[:n].tolist()} a replay and "
              f"{per_replay[n]} after the last K1")
-    k3 = int(per_replay.sum())
-    with profile_window() as prof:
-        ep.run(sub)
-        torch.cuda.synchronize()
-    by_name, counts = _device_kernels(prof, counts=True)
-    busy = sum(by_name.values()) / 1e3 / n
-    style_ms = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
     print(f"[graph] styled fit: {len(rows)} replays with no synchronizing call "
           f"(sync debug mode 'error'); K3 {len(rows)}, K4 and K5 0 by "
-          f"replay; "
-          f"device trace "
-          f"of {n} inspected replays: {k3} style_kernel, one in each; styled "
-          f"graphed step (fused, "
-          f"B=128): wall {wall:.3f} ms, device busy {busy:.4f} ms, idle share "
-          f"{1 - busy / wall:.3f}, {sum(counts.values()) / n:.1f} kernels/step, "
-          f"K3 {style_ms:.4f} ms/step; {gpu}")
+          f"replay; device trace of {n} inspected replays: "
+          f"{int(per_replay.sum())} style_kernel, one in each")
 
 
 def _eval_pairs(clear, styled, gvae, valid_ds):
@@ -1835,7 +1789,6 @@ def phase_downstream(gpu, here):
               f"styled steps); test acc {r['acc']}, AUPR {r['pr']['overall']},"
               f" AUROC {r['roc']['overall']}")
     clear = trainers[ZOO.index("clear")]
-    clear_fit = rec.calls["fit"][ZOO.index("clear")]
     # MIG of the last validation's latents, both backends on the same input
     m_args = rec.calls["mig"][-1]["args"]
     lat = (m_args["label"], m_args["latent_c"], m_args["latent_s"])
@@ -1868,7 +1821,6 @@ def phase_downstream(gpu, here):
           f"{mig_s['torch'][1]:.3f}/{mig_s['torch'][2]:.3f} s")
     print(f"[downstream] launches: style_batch {launches} (expected {want}); "
           f"{other}")
-    _profile_styled_steps(clear, clear_fit["args"]["train_ds"])
     return {**other, "style_batch": launches, "threefry": k4, "glass": k5}
 
 
@@ -2002,27 +1954,6 @@ def _k1_instance(kernels_by_name) -> str:
     return names[0]
 
 
-def _timed64(tag, trainer, train_ds, gpu, flops, batch: int = 128):
-    """``bench.time_steps`` of a 64×64 trainer: eager and graphed steps in
-    turns; prints wall, device busy, idle share, kernels a step, images/sec
-    and the FLOP share over the fp32 peak; returns the stats."""
-    from clearvae_torch.bench import PEAK_FP32_FLOPS, time_steps
-
-    stats = time_steps(trainer, train_ds, n=STEPS64, batch=batch)
-    for mode, r in stats.items():
-        if not r["kernels_by_name"]:
-            fail(f"{tag} {mode}: the profiler recorded no kernel")
-        print(f"[sixty-four] {tag} {mode} step (B={batch}, {STEPS64} steps a "
-              f"turn): wall {'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms,"
-              f" device busy {r['device_busy_ms']:.3f} ms, idle share "
-              f"{'/'.join(f'{s:.3f}' for s in r['idle_share'])}, "
-              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
-              f"{'/'.join(f'{i:.1f}' for i in r['images_per_sec'])}, FLOP "
-              f"share {max(r['images_per_sec']) * flops / PEAK_FP32_FLOPS:.4f}"
-              f" (fp32 peak); {gpu}")
-    return stats
-
-
 def _sync_free_replays(tag, trainer, train_ds):
     """One epoch of a graphed trainer's train-step replays under
     ``set_sync_debug_mode("error")``: a synchronizing call between the
@@ -2092,7 +2023,6 @@ def phase_sixty_four(gpu, here):
     each counted from zero just before it and read just after."""
     import shutil
 
-    from clearvae_torch import bench
     from clearvae_torch.data.celeba import get_celeba
     from clearvae_torch.data.common import train_valid_split_array
     from clearvae_torch.experiments.downstream64 import (PERF_VAE_KWARGS,
@@ -2115,7 +2045,6 @@ def phase_sixty_four(gpu, here):
                                                       seed=0), 0.85, 0)
     print(f"[sixty-four] synthetic CelebA: {len(train)} train / {len(valid)} "
           f"held-out 64×64×3 images in {time.perf_counter() - t0:.2f} s")
-    flops = bench.clear_vae_train_flops_per_image(batch=128, **bench.SHAPE64)
     det = torch.backends.cudnn.deterministic
 
     # 1. fused CLEAR on VAE64: eager and graphed fits equal, K1 by replay
@@ -2162,14 +2091,10 @@ def phase_sixty_four(gpu, here):
           f"{hist[0]:.2f} -> {hist[-1]:.2f}; launches by replay {lg}; "
           f"evaluate {t_eval:.2f} s: MIG {mig:.4f}, MSE {mse:.3f}, K2f "
           f"{FL.LAUNCHES['snn_fwd']} = 2 x {n_eval} batches")
-    stats = _timed64("VAE64 CLEAR fused", graphed, train, gpu, flops)
-    k1 = _k1_instance(stats["graphed"]["kernels_by_name"])
-    top = sorted(stats["graphed"]["ms_by_name"].items(), key=lambda kv: -kv[1])
-    print(f"[sixty-four] graphed step's K1: {k1}, "
-          f"{stats['graphed']['kernels_by_name'][k1] / STEPS64:g} a step; "
-          f"top device kernels (ms a step):")
-    for name, ms in top[:8]:
-        print(f"[sixty-four]   {ms:.4f}  {name[:100]}")
+    counts = _replay_kernels(graphed)
+    k1 = _k1_instance(counts)
+    print(f"[sixty-four] a replay of the graphed step: K1 {k1}, "
+          f"{counts[k1]:g} a step")
 
     # 2. fused CLEAR-TC on VAE64: K2f and K2b once a step, by replay
     t0 = time.perf_counter()
@@ -2229,16 +2154,6 @@ def phase_sixty_four(gpu, here):
     print(f"[sixty-four] perf mode (bf16, fused heads): fit + evaluate "
           f"{time.perf_counter() - t0:.2f} s, MIG {pmig:.4f}, MSE "
           f"{pmse:.3f}; launches {lp}")
-    _timed64("VAE64 CLEAR fused, perf mode bf16", perf, train, gpu, flops)
-    # bench.py's 64×64 rows
-    for row, (batch, bf16) in bench.ROWS64.items():
-        rflops = bench.clear_vae_train_flops_per_image(batch=batch,
-                                                       **bench.SHAPE64)
-        r = bench.row_stats(bench.make_trainer(row),
-                            bench.data64(STEPS64 * batch), STEPS64, rflops,
-                            bench.PEAK_BF16_FLOPS if bf16
-                            else bench.PEAK_FP32_FLOPS, batch)
-        print(f"[sixty-four] bench {row}: " + json.dumps(r))
 
     # 5. the runners through their entry points, at cut depth
     out_root = os.path.join(here, ".runs", "chip_smoke_64")
@@ -2387,8 +2302,7 @@ def phase_artifacts(gpu, here):
         t = r["trainer"]
         steps = t.train_step.step
         print(f"{tag}: {secs:.2f} s, fit {fit_s:.2f} s ({steps} graphed "
-              f"steps, {steps * 128 / fit_s:.1f} images/sec with its "
-              f"validations), gMIG {r['mig']:.4f}, MSE {r['mse']:.3f}, K3 "
+              f"steps with their validations), gMIG {r['mig']:.4f}, MSE {r['mse']:.3f}, K3 "
               f"{launches['style_batch']}; {gpu}")
         if i == 0:
             if steps != DEMO_REF_STEPS:
@@ -2488,7 +2402,6 @@ def _styles_on_the_card(x_cpu, keys_cpu):
     of its kernels): a profiler
     window costs ~0.9 s here, and one call of every style launches
     ~31,000 kernels."""
-    from clearvae_torch.bench import profile_window
     from clearvae_torch.ops import corruptions as TC
     from clearvae_torch.ops.kernels import style as K3
 
@@ -2506,10 +2419,8 @@ def _styles_on_the_card(x_cpu, keys_cpu):
                 for _ in range(calls):
                     out = fn(x, keys)
                 torch.cuda.synchronize()
-            by_name, counts = _device_kernels(prof, counts=True)
-            names = [k for k in by_name
-                     if not k.startswith(("Memcpy", "Memset"))]
-            if names:
+            counts, us, _ = device_kernels(prof)
+            if counts:
                 break
         else:
             fail(f"{name}: the profiler recorded no kernel in 3 windows")
@@ -2523,8 +2434,8 @@ def _styles_on_the_card(x_cpu, keys_cpu):
             fail(f"{name} on the card vs the CPU: {off:.5f} of pixels beyond "
                  f"{atol} (bar {share}), max abs "
                  f"{float((got - ref).abs().max()):.3e}")
-        times[name] = (sum(by_name[k] for k in names) / 1e3 / calls,
-                       sum(counts[k] for k in names) / calls,
+        times[name] = (sum(us.values()) / 1e3 / calls,
+                       sum(counts.values()) / calls,
                        float((got - ref).abs().max()), off)
     return times, cpu_s
 
@@ -2534,7 +2445,6 @@ def phase_corruptions(gpu):
     docstring); returns {kernel: launches} of the styled fused fit and its
     evaluation, each counted from zero just before it and read just
     after."""
-    from clearvae_torch.bench import profile_window
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import (StyledDataset, make_styled_mnist,
                                             train_valid_split)
@@ -2642,10 +2552,7 @@ def phase_corruptions(gpu):
           f"state equal, max abs diff {diff:.1e} (cudnn.deterministic); "
           f"launches {lg}; {time.perf_counter() - t0:.2f} s")
 
-    # (f) the styled step's device time and images/sec: replays of the
-    # fit's own captured step
-    # (two profiled replays: the profiler's cost grows with their ~23,000
-    # kernels a step)
+    # (f) K4 and K5 by replay alone: replays of the fit's own captured step
     ep = trainer._graphs[(id(train_ds), 128, True)][1]
     rows = torch.as_tensor(np.random.RandomState(1).permutation(len(train_ds))
                            [:10 * 128].reshape(10, 128), device="cuda")
@@ -2662,27 +2569,6 @@ def phase_corruptions(gpu):
     print(f"[corruptions] K4 by replay: {K4.LAUNCHES['threefry']} in "
           f"{len(rows)} replays of the MNIST-C step ({K4_BATCH_PASSES} a "
           f"step); K5 {k5} (one a step)")
-    t0 = time.perf_counter()
-    ep.run(rows)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / len(rows)
-    with profile_window() as prof:
-        ep.run(rows[:2])
-        torch.cuda.synchronize()
-    by_name, n_kernels = _device_kernels(prof)
-    if not by_name:
-        fail("the profiler recorded no device activity")
-    busy = sum(by_name.values()) / 1e3 / 2
-    style_sum = sum(ms for name, (ms, *_) in times.items()
-                    if name in dict(styles))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[corruptions] {gpu}: graphed MNIST-C styled train step (B=128, "
-          f"z=16): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / wall:.3f}, {n_kernels / 2:.0f} kernels/step, "
-          f"{128e3 / wall:.0f} images/s; the 16 styles' eager calls sum to "
-          f"{style_sum:.3f} device ms; top kernels (ms a step):")
-    for name, us in top:
-        print(f"[corruptions]   {us / 1e3 / 2:.4f}  {name[:90]}")
     # (e) the counter that (b) read is the one the draws write: poisson's
     # loop sized for rates below the ones drawn cuts draws on the card, and
     # check_poisson and a fit must then raise
@@ -2711,9 +2597,7 @@ def phase_corruptions(gpu):
     return total
 
 
-PAR_BENCH_STEPS = 10     # steps a turn of the four 28×28 perf rows
 PAR_OTHER_N = 1024       # images of the CNN, LAM and VAE64 mesh fits
-PAR_OTHER_STEPS = 5      # and steps a turn of their timings
 # VAE64's DP(2) gradients against one rank's, tensor by tensor: the L2
 # norm of the difference within this share of the single rank's norm
 # (plus 1e-5 of the largest entry an element). Element by element they
@@ -2798,21 +2682,30 @@ def _horizon_params(tag, kw, fit_kw, ds, mesh, base=None):
     return base, worst, rest, rel
 
 
+def _data64(n: int):
+    """``n`` uniform 64×64×3 images and labels 0..9 from ``RandomState(0)``,
+    as the repository ``bench.py`` makes its 64×64 data."""
+    from clearvae_torch.data.common import ArrayDataset
+
+    rs = np.random.RandomState(0)
+    images = rs.rand(n, 64, 64, 3).astype(np.float32)
+    labels = rs.randint(0, 10, n)
+    return ArrayDataset(images, labels, np.zeros(n, np.int64))
+
+
 def _dp_inputs(train_ds):
     """Phase 11 (b)'s batches: the first 128 styled images of phase 3's
     data and its labels, with numpy noise for one CLEAR step and one
     CLEAR-TC step and the uniforms of one LAM-CNN step's shuffle; 128
-    images of ``bench.py``'s 64×64 data, with the noise of one VAE64
-    CLEAR step (global shapes: each rank slices its rows)."""
-    from clearvae_torch import bench as TB
-
+    images of ``_data64``, with the noise of one VAE64 CLEAR step
+    (global shapes: each rank slices its rows)."""
     rs = np.random.RandomState(11)
 
     def normal(*shape):
         return torch.as_tensor(rs.randn(*shape).astype(np.float32))
 
     x = train_ds.materialize(torch.device("cuda"))[:128].cpu()[..., None]
-    ds64 = TB.data64(128)
+    ds64 = _data64(128)
     return {"x": x, "label": torch.as_tensor(np.asarray(train_ds.labels[:128])),
             "eps": normal(2, 128, 8),
             "noise_tc": (normal(2, 128, 8), normal(2, 128, 8)),
@@ -2905,25 +2798,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _replay_kernels(trainer) -> dict:
-    """{kernel name: launches} in one replay of ``trainer``'s captured
-    train step, by the profiler."""
-    from clearvae_torch.bench import profile_window
-
-    ep = next(fn for key, (_, fn) in trainer._graphs.items()
-              if key[0] != "eval")
-    graph = ep.graph[0]
-    for _ in range(3):
-        with profile_window() as prof:
-            graph.replay()
-        _, counts = _device_kernels(prof, counts=True)
-        names = {k: v for k, v in counts.items()
-                 if not k.startswith(("Memcpy", "Memset"))}
-        if names:
-            return names
-    fail("the profiler recorded no kernel in three replays of a mesh step")
-
-
 def _nccl_kernels_in_replay(trainer):
     """(NCCL kernels, all kernels) in one replay of ``trainer``'s captured
     train step."""
@@ -2934,9 +2808,8 @@ def _nccl_kernels_in_replay(trainer):
 
 def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
     """Phase 11 (a): one rank over NCCL (whose process group the caller
-    holds), on make_mesh(1) and on make_mesh2d(1, 1); returns the fused
-    CLEAR trainer to time, {mesh: trainer}: make_mesh(1)'s (phase 7 times
-    the no-mesh step in this process)."""
+    holds), on make_mesh(1) and on make_mesh2d(1, 1); adds the graphed
+    fits' and evaluations' launches to ``total``."""
     from clearvae_torch.data.styled import StyledDataset
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.parallel import make_mesh, make_mesh2d
@@ -2956,7 +2829,6 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
                                train_ds.style_idx[:n_h], train_ds.styles,
                                train_ds.seed, train_ds.sample_ids[:n_h])
     horizon_base = {}
-    timed = {}
     for mesh_name, make in (("make_mesh(1)", lambda: make_mesh(1)),
                             ("make_mesh2d(1, 1)", lambda: make_mesh2d(1, 1))):
         mesh = make()
@@ -3025,8 +2897,6 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
                       f"{mig:.4f}, MSE {mse:.3f}, K2f "
                       f"{FL.LAUNCHES['snn_fwd']} for {n_eval} batches, "
                       f"{PM.COLLECTIVES['all_reduce']} all-reduces")
-                if not tp:
-                    timed[mesh_name] = graphed
         t0 = time.perf_counter()
         tc, lt = _par_fit(get_cleartcvae_trainer,
                           {**ADV_COMMON, "la": 1, "factor_cls_lr": 1e-4,
@@ -3044,7 +2914,6 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
         print(f"[parallel] {mesh_name} clear-tc fused: {n} graphed "
               f"updates, launches by replay {lt} "
               f"({time.perf_counter() - t0:.2f} s)")
-    return timed
 
 
 def _bn_collectives(trainer, passes: int, gathers: int, tp: bool) -> int:
@@ -3059,7 +2928,7 @@ def _bn_collectives(trainer, passes: int, gathers: int, tp: bool) -> int:
     return 2 * bns * passes + gathers + 2 + int(tp)
 
 
-def _phase_parallel_other_models(gpu, train_ds):
+def _phase_parallel_other_models(train_ds):
     """Phase 11 (a), the other trainers on one NCCL rank (whose process
     group the caller holds): SimpleCNN, LAM-CNN (on make_mesh(1) and
     make_mesh2d(1, 1)), the styled SimpleCNN and VAE64 CLEAR at the 64×64
@@ -3067,9 +2936,7 @@ def _phase_parallel_other_models(gpu, train_ds):
     graphed under ``cudnn.deterministic``: graphed = eager at 0.0, K1, K3
     and the all-reduces counted by replay, K1's <32, true> instance in a
     replay's trace for VAE64. Returns {kernel or "all_reduce": launches}
-    of the graphed fits, and {tag: (the mesh's graphed trainer, its data,
-    its factory, its kwargs without the mesh)} to time."""
-    from clearvae_torch import bench as TB
+    of the graphed fits."""
     from clearvae_torch.data.styled import StyledDataset
     from clearvae_torch.parallel import make_mesh, make_mesh2d
     from clearvae_torch.train.factories import (get_clearvae_trainer,
@@ -3081,7 +2948,7 @@ def _phase_parallel_other_models(gpu, train_ds):
                          train_ds.style_idx[:n], train_ds.styles,
                          train_ds.seed, train_ds.sample_ids[:n])
     ds28.materialize(torch.device("cuda"))   # K3 here is not the fits'
-    ds64 = TB.data64(n)
+    ds64 = _data64(n)
     cnn = dict(n_class=10, seed=0, verbose_period=10 ** 9, device="cuda")
     lam = {**cnn, "lam_coef": 1e-3}
     meshes = {"make_mesh(1)": make_mesh(1),
@@ -3098,7 +2965,6 @@ def _phase_parallel_other_models(gpu, train_ds):
             "VAE64 CLEAR": ("make_mesh(1)", get_clearvae_trainer,
                             {**SIXTY_FOUR, "ps": True}, ds64, {}, (1, 2))}
     det = torch.backends.cudnn.deterministic
-    timed = {}
     total = {k: 0 for k in (*COUNTED, "all_reduce")}
     for tag, (mesh_name, factory, kw, ds, fit_kw, (passes, gathers)) in \
             runs.items():
@@ -3133,61 +2999,50 @@ def _phase_parallel_other_models(gpu, train_ds):
               f"eager, max abs diff {diff:.3e} (cudnn.deterministic); "
               f"launches by replay {lg}; K1 in a replay: {k1} "
               f"({time.perf_counter() - t0:.2f} s)")
-        if mesh_name == "make_mesh(1)" and not fit_kw:
-            timed[tag] = (graphed, ds, factory, {k: v for k, v in kw.items()
-                                                 if k != "mesh"})
     print(f"[parallel] launches by replay in the CNN, LAM and VAE64 mesh "
           f"fits: {total}")
-    return total, timed
+    return total
 
 
-def _par_time(tag, trainer, train_ds, gpu, n: int = PAR_BENCH_STEPS):
-    """The train step of ``trainer`` timed by ``bench.time_steps`` (eager,
-    graphed, graphed, eager; ``n`` steps a turn)."""
-    from clearvae_torch.bench import time_steps
-
-    for mode, r in time_steps(trainer, train_ds, n=n).items():
-        print(f"[parallel] {tag} {mode} step (B=128, {n} a turn): wall "
-              f"{'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, device "
-              f"busy {r['device_busy_ms']:.3f} ms, idle share "
-              f"{'/'.join(f'{v:.3f}' for v in r['idle_share'])}, "
-              f"{r['kernels_per_step']:.1f} kernels/step, images/sec "
-              f"{'/'.join(f'{v:.1f}' for v in r['images_per_sec'])}; {gpu}")
+# phase 11 (c): the root bench's 28×28 perf rows, each (batch, bfloat16
+# conv stacks, the four latent heads in one Linear)
+PERF28 = {"clear_28_bf16": (128, True, False),
+          "clear_28_fusedheads": (128, False, True),
+          "perf_mode_b2048_bf16": (2048, True, False),
+          "perf_mode_b512_bf16_fusedheads": (512, True, True)}
 
 
-def _phase_parallel_bench(gpu):
-    """Phase 11 (c): the four 28×28 perf rows through ``time_steps``;
-    returns {row: K1 launches}."""
-    from clearvae_torch import bench as TB
-    from clearvae_torch.ops.kernels import fused_loss as FL
+def _phase_parallel_perf28(train_ds):
+    """Phase 11 (c): the fused flagship CLEAR trainer in each form of
+    ``PERF28``, without a mesh, fit 2 epochs graphed on phase 3's data (at
+    B = 2,048 the three warm-up steps fill the first epoch and the second
+    replays the captured step): K1 once a step each way by replay, no
+    other kernel; returns {row: K1 forward launches}."""
+    from clearvae_torch.train.factories import get_clearvae_trainer
 
-    data, k1 = {}, {}
-    for kind, (batch, bf16, _, n_images) in TB.ROWS28.items():
-        if n_images not in data:
-            data[n_images] = TB.data28(n_images, torch.device("cuda"))
-        flops = TB.clear_vae_train_flops_per_image(batch=batch)
-        peak = TB.PEAK_BF16_FLOPS if bf16 else TB.PEAK_FP32_FLOPS
-        FL.reset_launches()
-        row = TB.row_stats(TB.make_trainer(kind, "cuda"), data[n_images],
-                           PAR_BENCH_STEPS, flops, peak, batch)
+    k1 = {}
+    for row, (batch, bf16, fused_heads) in PERF28.items():
+        vae = {"dtype": torch.bfloat16} if bf16 else {}
+        vae.update({"fused_heads": True} if fused_heads else {})
+        trainer = get_clearvae_trainer(**ADV_COMMON, ps=True, vae_kwargs=vae)
+        _zero_launches()
+        trainer.fit(2, train_ds, batch_size=batch)
         torch.cuda.synchronize()
-        k1[kind] = FL.LAUNCHES["clear_latent_fwdgrad"]
-        if k1[kind] == 0:
-            fail(f"{kind}: K1 was launched no time")
-        for mode in ("eager", "graphed"):
-            r = row[mode]
-            if not all(math.isfinite(v) and v > 0
-                       for v in r["images_per_sec"]):
-                fail(f"{kind} {mode}: images/sec {r['images_per_sec']}")
-            print(f"[parallel] bench {kind} (B={batch}, "
-                  f"{'bf16' if bf16 else 'fp32'}) {mode}: images/sec "
-                  f"{'/'.join(f'{v:.1f}' for v in r['images_per_sec'])}, "
-                  f"wall {'/'.join(f'{w:.3f}' for w in r['walls_ms'])} ms, "
-                  f"device busy {r['device_busy_ms']:.3f} ms, idle share "
-                  f"{'/'.join(f'{v:.3f}' for v in r['idle_share'])}, FLOP "
-                  f"share {'/'.join(f'{v:.4f}' for v in r['flop_share'])}, "
-                  f"{r['kernels_per_step']:.1f} kernels/step; {gpu}")
-    print(f"[parallel] K1 launches in the four rows' runs: {k1}")
+        got, n = _launches(), trainer.train_step.step
+        want = {k: 0 for k in COUNTED}
+        want["clear_latent_fwdgrad"] = want["clear_latent_bwd"] = n
+        ep = trainer._graphs[(id(train_ds), batch, False)][1]
+        if (n != 2 * (len(train_ds) // batch) or got != want
+                or ep.graph is None or trainer.model.fused_heads != fused_heads
+                or trainer.model.dtype != (torch.bfloat16 if bf16
+                                           else torch.float32)):
+            fail(f"{row}: {n} graphed updates at B={batch}, launches by "
+                 f"replay {got}, expected {want}; captured "
+                 f"{ep.graph is not None}")
+        k1[row] = got["clear_latent_fwdgrad"]
+        print(f"[parallel] {row} (B={batch}, {'bf16' if bf16 else 'fp32'}"
+              f"{', fused heads' if fused_heads else ''}): {n} graphed "
+              f"updates, K1 {k1[row]} each way by replay")
     return k1
 
 
@@ -3216,22 +3071,13 @@ def phase_parallel(gpu, train_ds, valid_ds, here):
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
-        timed = _phase_parallel_one_rank(gpu, train_ds, valid_ds, total)
+        _phase_parallel_one_rank(gpu, train_ds, valid_ds, total)
         t_other = time.perf_counter()
-        other_total, other = _phase_parallel_other_models(gpu, train_ds)
+        other_total = _phase_parallel_other_models(train_ds)
         t_a = time.perf_counter()
         alone = _dp_steps(inp, None)
         logs = [c.communicate(timeout=300)[0] for c in children]
         t_b = time.perf_counter()
-        # timed with the card to this process again
-        for tag, trainer in timed.items():
-            _par_time(f"{tag} fused CLEAR", trainer, train_ds, gpu)
-        # the other trainers' mesh steps beside their no-mesh twins
-        for tag, (trainer, ds, factory, kw) in other.items():
-            _par_time(f"make_mesh(1) {tag}", trainer, ds, gpu, PAR_OTHER_STEPS)
-            _par_time(f"no mesh {tag}", factory(**kw), ds, gpu,
-                      PAR_OTHER_STEPS)
-        t_t = time.perf_counter()
     finally:
         dist.destroy_process_group()
         for c in children:
@@ -3302,130 +3148,15 @@ def phase_parallel(gpu, train_ds, valid_ds, here):
               + f" of the single rank's (max abs diff {gdiff:.3e}, largest "
               f"entry {scale:.3e}); loss and update within the CPU tests' "
               f"bars; both ranks' parameters equal")
-    k1 = _phase_parallel_bench(gpu)
+    t_c = time.perf_counter()
+    k1 = _phase_parallel_perf28(train_ds)
     t_end = time.perf_counter()
     print(f"[parallel] whole phase {t_end - t_phase:.2f} s (one rank "
           f"{t_a - t_phase:.2f}, of it the CNN, LAM and VAE64 fits "
           f"{t_a - t_other:.2f}, the two gloo ranks' wait {t_b - t_a:.2f}, "
-          f"the steps timed {t_t - t_b:.2f}, the four rows "
-          f"{t_end - t_t:.2f}); launches on the meshes {total}")
-    return {**total, "bench_k1": k1, "other": other_total}
-
-
-def _device_kernels(prof, counts: bool = False):
-    """({kernel name: device us}, kernel count) of a profile, without the
-    host ranges that the profiler mirrors onto the device timeline (a
-    record_function range such as Optimizer.step#Adam.step spans kernels;
-    it is not one). With counts, the count is per name."""
-    from torch.autograd import DeviceType
-
-    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    by_name: dict = {}
-    per_name: dict = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and e.name not in host_names):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            per_name[e.name] = per_name.get(e.name, 0) + 1
-    return by_name, (per_name if counts else sum(per_name.values()))
-
-
-def _profile_styled_steps(trainer, ds, n: int = 20, bs: int = 128):
-    """Where a styled train step's time goes: wall ms of styling + step
-    (eager, and graphed: one replay of the captured styled step a batch),
-    styling alone and the step alone over n batches, then the device time
-    of each under the profiler, K3's and styling's share of the styled
-    step's device time, and styling's kernels and host syncs a batch."""
-    from clearvae_torch.bench import profile_window
-    from clearvae_torch.train import steps as S
-
-    dev = trainer.device
-    raw, sidx, draws = ds.device_arrays(dev)
-    labels = torch.as_tensor(ds.labels, dtype=torch.int64, device=dev)
-    idx = [torch.arange(i * bs, (i + 1) * bs, device=dev) for i in range(n)]
-    pre = [ds.style(raw[i], sidx[i], draws[i])[..., None] for i in idx]
-
-    def styled():
-        for i in idx:
-            trainer.train_step(ds.style(raw[i], sidx[i], draws[i])[..., None],
-                               labels[i], trainer._train_noise(bs))
-
-    def style_only():
-        for i in idx:
-            ds.style(raw[i], sidx[i], draws[i])
-
-    def step_only():
-        for i, x in zip(idx, pre):
-            trainer.train_step(x, labels[i], trainer._train_noise(bs))
-
-    graph = S.make_graphed_epoch_fn(trainer.train_step, None, labels, bs,
-                                    trainer._train_noise, styler=ds.style,
-                                    style_arrays=(raw, sidx, draws))
-    rows = torch.stack(idx)
-
-    def graphed():
-        graph.run(rows)
-
-    walls, busy, kernels, k3 = {}, {}, {}, 0.0
-    for name, fn in (("styled step", styled), ("graphed styled step", graphed),
-                     ("styling", style_only), ("step", step_only)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls[name] = (time.perf_counter() - t0) * 1e3 / n
-        with profile_window() as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name, n_kernels = _device_kernels(prof)
-        if not by_name:
-            fail("the profiler recorded no device activity")
-        busy[name] = sum(by_name.values()) / 1e3 / n
-        kernels[name] = n_kernels / n
-        if name == "styled step":
-            k3 = sum(v for k, v in by_name.items() if "style_kernel" in k) / 1e3 / n
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    for name in ("styled step", "graphed styled step"):
-        print(f"[profile] {name.replace('styled step', 'styled train step')} "
-              f"(B={bs}): wall {walls[name]:.3f} ms, device busy "
-              f"{busy[name]:.4f} ms, idle share "
-              f"{1 - busy[name] / walls[name]:.3f}, {kernels[name]:.1f} "
-              f"kernels/step")
-    # host syncs of one styling call, as torch's sync debug mode reports them
-    import warnings
-
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            ds.style(raw[idx[0]], sidx[idx[0]], draws[idx[0]])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"[profile]   styling alone: wall {walls['styling']:.3f} ms, device "
-          f"{busy['styling']:.4f} ms ({busy['styling'] / busy['styled step']:.3f}"
-          f" of the styled step's device time), {kernels['styling']:g} kernels "
-          f"and {syncs} host syncs a batch; K3 {k3:.4f} ms "
-          f"({k3 / busy['styled step']:.4f} of it)")
-    print(f"[profile]   step alone: wall {walls['step']:.3f} ms, device "
-          f"{busy['step']:.4f} ms")
-    # the set-up cost of the dataset's draws: one threefry pass over all its
-    # sample ids (made once in device_arrays; batches gather)
-    from clearvae_torch.ops.corruptions import style_draws
-
-    ids = torch.as_tensor(ds.sample_ids, dtype=torch.int64, device=dev)
-    draw_ms = []
-    for _ in range(2):                                  # second: warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        style_draws(ds.seed, ids)
-        torch.cuda.synchronize()
-        draw_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"[profile]   style draws of all {len(ids)} sample ids, once per "
-          f"dataset: {draw_ms[0]:.3f}/{draw_ms[1]:.3f} ms wall (first/second)")
-    for name, us in top:
-        print(f"[profile]   {us / 1e3 / n:.4f} ms/step  {name[:90]}")
+          f"the perf-mode fits {t_end - t_c:.2f}); launches on the meshes "
+          f"{total}")
+    return {**total, "perf28_k1": k1, "other": other_total}
 
 
 def main():
@@ -3451,9 +3182,9 @@ def main():
     k3_err, k3_times = phase_style_kernel()
     k4_alone, k4_batch = phase_threefry()
     k5 = phase_glass()
-    launches, (train_ds, valid_ds) = phase_main(gpu)
+    launches, (train_ds, valid_ds) = phase_main()
     adv = phase_adversarial(gpu, train_ds, valid_ds)
-    graph = phase_graph(gpu, train_ds, valid_ds, here)
+    graph = phase_graph(train_ds, valid_ds, here)
     down = phase_downstream(gpu, here)
     mig = phase_mig(gpu, here)
     s64 = phase_sixty_four(gpu, here)
@@ -3535,7 +3266,7 @@ def main():
                       "parallel_all_reduce": par["all_reduce"],
                       "parallel_cnn_lam_vae64_all_reduce":
                           par["other"]["all_reduce"],
-                      "bench28_k1": par["bench_k1"],
+                      "perf28_k1": par["perf28_k1"],
                       "threefry_mnistc_batch": k4_batch,
                       "glass_by_severity": k5}))
     print(json.dumps({"ok": True, "device": {

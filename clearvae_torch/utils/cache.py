@@ -7,9 +7,9 @@ enable; the name is kept from the JAX package. What stays is its two other
 jobs, done once before a process touches the card: it takes the
 single-GPU-process lock (``utils/lock.py``), and it sets the numerics that
 the JAX reference computes, fp32 matmuls and convolutions (TF32 off for
-cuBLAS and cuDNN). Every runner's ``main``, ``bench.py``,
-``experiments/kernel_ab.py`` and the trainers' ``fit`` call it; a second
-call in the same process changes nothing.
+cuBLAS and cuDNN). Every runner's ``main``, ``chip_smoke.py`` and the
+trainers' ``fit`` call it; a second call in the same process changes
+nothing.
 """
 
 from __future__ import annotations

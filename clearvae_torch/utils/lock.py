@@ -2,8 +2,8 @@
 
 Two processes that share one card do not fail: they time-slice it, and
 every number either of them measures is slower than the card. Every entry
-point that drives the card (the experiment runners' ``main``, ``bench.py``,
-``kernel_ab.py`` and the trainers' ``fit``, through
+point that drives the card (the experiment runners' ``main``,
+``chip_smoke.py`` and the trainers' ``fit``, through
 ``utils.cache.enable_compilation_cache``) takes an exclusive ``flock`` on
 the lock file of its card in the temporary directory,
 ``clearvae_torch-<card UUID>.lock``, and holds it for the life of the

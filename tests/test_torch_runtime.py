@@ -2,10 +2,9 @@
 every runner whose JAX counterpart takes the device lock and the
 compilation cache takes the port's lock and leaves TF32 off before it
 touches the device (illustrate and analyze, as in JAX, neither), and so
-do the trainers' ``fit``, ``bench.py`` and ``kernel_ab.py``; the
-single-GPU-process lock refuses a second process and names the holder,
-and its escape hatch skips it; ``HierarchicalVAETrainer(eval_evidence_acc=
-...)`` picks the default eval step as JAX's does, its ``evaluate`` equal to
+do the trainers' ``fit``; the single-GPU-process lock refuses a second
+process and names the holder, and its escape hatch skips it;
+``HierarchicalVAETrainer(eval_evidence_acc=...)`` picks the default eval step as JAX's does, its ``evaluate`` equal to
 JAX's for both values."""
 
 import importlib
@@ -135,35 +134,6 @@ def test_fit_takes_the_lock_and_sets_fp32_first(which, monkeypatch, tf32_on):
     assert len(calls) == 1
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
-
-
-def test_bench_takes_the_lock_and_sets_fp32(monkeypatch, tf32_on):
-    from clearvae_torch import bench
-
-    calls = _count_locks(monkeypatch)
-    with pytest.raises(SystemExit, match="measures a CUDA card"):
-        bench.main(["--device", "cpu"])
-    assert len(calls) == 1
-    assert torch.backends.cudnn.allow_tf32 is False
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-
-
-def test_kernel_ab_holds_the_lock_for_every_root(monkeypatch, tf32_on,
-                                                 tmp_path):
-    """The parent takes the lock once; each root runs in a child that
-    takes the escape hatch."""
-    from clearvae_torch.experiments import kernel_ab
-
-    calls = _count_locks(monkeypatch)
-    runs = []
-    monkeypatch.setattr(kernel_ab.subprocess, "run",
-                        lambda cmd, **kw: runs.append((cmd, kw)))
-    monkeypatch.setattr(kernel_ab, "compare", lambda paths: {})
-    kernel_ab.main(["--root", "a", "--root", "b", "--out", str(tmp_path)])
-    assert len(calls) == 1 and len(runs) == 2
-    for cmd, kw in runs:
-        assert "--one" in cmd and kw["check"]
-        assert kw["env"]["CLEARVAE_TORCH_NO_LOCK"] == "1"
 
 
 # ---------------------------------------------------------------------------
