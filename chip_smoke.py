@@ -33,11 +33,28 @@ Phases, each fatal on failure:
                 draws at severities 1 and 5 on a B = 128 batch, in place
                 and into ``out=``, one kernel a call, timed against the
                 twin, and one glass_blur call's kernels and device time.
+                BatchNorm K6: at each BatchNorm of VAE64 and the 28×28 VAE
+                at B = 128 (``K6_LAYERS``), float32 and bfloat16,
+                channels-last and NCHW, each activation in train, eval and
+                train without ``update_stats``, the output, the input's,
+                weight's and bias's gradients and the running statistics
+                against the twin, every element within its bar
+                (``k6_check``: a ReLU input that the two put on other sides
+                of zero must lie within ``K6_FLIP_AT`` of it, and is then
+                held through K6's mask, and printed), four launches and
+                kernels a train call, one launch an eval forward, two calls
+                bit-identical; a float16 BatchNorm raises; forward +
+                backward timed channels-last (events, the profiler's device
+                µs) against the twin and ``k6_bound`` (5 passes; K6's
+                design moves 8).
                 Every later phase counts K4's launches
-                (``launches.threefry``) and K5's (``launches.glass``)
-                beside K3's, on the same paths (the JSON line's
-                ``launches_by_path``): K5 runs only where glass_blur
-                does, the MNIST-C paths of phase 10.
+                (``launches.threefry``), K5's (``launches.glass``) and K6's
+                (``launches.batchnorm``) beside K3's, on the same paths
+                (the JSON line's ``launches_by_path``): K5 runs only where
+                glass_blur does, the MNIST-C paths of phase 10; K6 on every
+                path without a mesh (4 a BatchNorm a train step, checked
+                exactly on the fused fits of phases 3, 8, 10 and 11 (c)),
+                never under one.
 3. main       — the flagship configuration through the user entry points:
                 ``get_clearvae_trainer`` (z = 16, batch 128, τ = 0.1, α = 100,
                 β = 1/8, Adam 5e-4, fused latent losses) → ``fit`` for 2
@@ -315,6 +332,32 @@ K5_SOURCE = "clearvae_torch/csrc/glass_swap.cu"
 # glass_blur's severities K5 is held and timed at: 1,352 swaps an image
 # (severity 1, MNIST-C's default) and 800 (severity 5), at B = 128
 K5_SEVERITIES = (1, 5)
+K6_SOURCE = "clearvae_torch/csrc/batchnorm.cu"
+# (C, H·W, activation) of each BatchNorm of VAE64 (cells 2 and 5: the
+# encoder's five, the decoder's dense layer and its five ConvTs) and of the
+# 28×28 VAE (cells 1, 3, 4), at B = 128; K6 is held and timed at each, in
+# float32 and bfloat16
+K6_LAYERS = {
+    "vae64": ((32, 1024, "relu"), (64, 256, "relu"), (128, 64, "relu"),
+              (256, 16, "relu"), (512, 4, "relu"), (2048, 1, "relu"),
+              (256, 16, "relu"), (128, 64, "relu"), (64, 256, "relu"),
+              (32, 1024, "relu"), (3, 4096, "sigmoid")),
+    "vae28": ((32, 196, "relu"), (64, 49, "relu"), (128, 16, "relu"),
+              (2048, 1, "relu"), (64, 49, "relu"), (32, 196, "relu"),
+              (1, 784, "sigmoid"))}
+# the element passes of a train layer: the fewest any implementation moves
+# (the forward reads x and writes y; the backward reads dy and x and writes
+# dx), and K6's (stats and apply each read x; grad_reduce and grad_apply
+# each read dy and x)
+K6_MIN_PASSES = 5
+K6_PASSES = 8
+# the ReLU inputs that K6's statistics and the twin's may put on other sides
+# of zero (the two sum in other orders): within this share of the layer's
+# largest input (at least 1) of zero
+K6_FLIP_AT = 2 ** -14
+# the layer's modes: (train, update_stats)
+K6_MODES = {"train": (True, True), "eval": (False, True),
+            "no_update": (True, False)}
 DOWNSTREAM_ARGS = ["--style_on_device", "--k_min", "5",
                    "--k_max", "5", "--seed", "0", "--epochs", "2",
                    "--n_train", "20000", "--n_test", "4000",
@@ -783,11 +826,13 @@ def phase_style_kernel():
 
 
 # the launch counters read on each path: the fused-loss kernels', K3's
-# (``style_batch``), K4's (``threefry``) and K5's (``glass``)
-COUNTED = (*REPLACES, "style_batch", "threefry", "glass")
+# (``style_batch``), K4's (``threefry``), K5's (``glass``) and K6's
+# (``batchnorm``, its four stages together)
+COUNTED = (*REPLACES, "style_batch", "threefry", "glass", "batchnorm")
 
 
 def _zero_launches() -> None:
+    from clearvae_torch.ops.kernels import batchnorm as K6
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.ops.kernels import glass as K5
     from clearvae_torch.ops.kernels import style as K3
@@ -797,18 +842,30 @@ def _zero_launches() -> None:
     K3.reset_launches()
     K4.reset_launches()
     K5.reset_launches()
+    K6.reset_launches()
 
 
 def _launches() -> dict:
     """{kernel: launches} since ``_zero_launches``, by ``COUNTED``'s
     names."""
+    from clearvae_torch.ops.kernels import batchnorm as K6
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.ops.kernels import glass as K5
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.ops.kernels import threefry as K4
 
     return {**FL.LAUNCHES, "style_batch": K3.LAUNCHES["style"],
-            "threefry": K4.LAUNCHES["threefry"], "glass": K5.LAUNCHES["glass"]}
+            "threefry": K4.LAUNCHES["threefry"], "glass": K5.LAUNCHES["glass"],
+            "batchnorm": sum(K6.LAUNCHES.values())}
+
+
+def _bn_layers(module) -> int:
+    """The BatchNorm layers of ``module``: each takes K6's four launches a
+    train step (stats, apply, grad_reduce, grad_apply), two a no-grad
+    train-mode forward and one an eval forward, off a mesh."""
+    from clearvae_torch.models.layers import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in module.modules())
 
 
 def k4_bound(passes):
@@ -992,6 +1049,215 @@ def phase_glass():
     return timings
 
 
+def k6_bound(layers, itemsize: int, passes: int = K6_MIN_PASSES):
+    """(bound_ms, bound_by) of a train step's BatchNorms, each (C, H·W,
+    activation) at B = 128: ``passes`` element passes of ``itemsize`` bytes
+    over HBM bandwidth (the per-channel vectors, a few KB, left out). The
+    bound is the fewest any implementation moves, ``K6_MIN_PASSES``;
+    ``K6_PASSES`` gives what K6's design moves."""
+    nbytes = sum(passes * 128 * c * hw * itemsize for c, hw, _ in layers)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def k6_operands(n, c, hw, dtype, device, seed, channels_last=False):
+    """[x, dy, weight, bias, running mean, running var] of a layer of C
+    channels of H·W (a square plane; 2-D where H·W = 1) at batch ``n``."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (n, c) if hw == 1 else (n, c, *(2 * (math.isqrt(hw),)))
+    fmt = (torch.channels_last if channels_last and hw > 1
+           else torch.contiguous_format)
+    x = (torch.randn(shape, generator=g) * 1.5 + 0.3).to(
+        device, dtype, memory_format=fmt)
+    dy = torch.randn(shape, generator=g).to(device, dtype, memory_format=fmt)
+    params = (1 + 0.2 * torch.randn(c, generator=g),
+              0.2 * torch.randn(c, generator=g),
+              0.1 * torch.randn(c, generator=g),
+              0.5 + torch.rand(c, generator=g))
+    return [x, dy, *(t.to(device) for t in params)]
+
+
+def k6_layer(fn, ops, train, update_stats, act, mask=None):
+    """[y, dx, dweight, dbias, running mean, running var] of ``fn`` (K6's
+    ``batch_norm`` or the twin) on copies of ``ops``; with a ReLU ``mask``,
+    y is the pre-activation and the gradients are taken through ``mask``
+    in place of y > 0."""
+    x, dy, w, b, rm, rv = (t.clone() for t in ops)
+    for t in (x, w, b):
+        t.requires_grad_(True)
+    y = fn(x, w, b, rm, rv, train, update_stats,
+           act if mask is None else "none")
+    grads = torch.autograd.grad(y, (x, w, b),
+                                dy if mask is None else dy * mask)
+    return [y.detach(), *grads, rm, rv]
+
+
+def k6_bar(ref, k: int, dtype) -> float:
+    """The bar of tensor ``k`` of ``k6_layer``'s list against the twin's
+    ``ref``, for every element: 2e-5 of the twin's largest magnitude (at
+    least 1) in a float32 layer (8 times that for dweight and dbias, sums
+    over a channel), two bf16 steps (2^-7) in a bfloat16 layer."""
+    tol = (2e-5 * (8 if k in (2, 3) else 1) if dtype == torch.float32
+           else 2 ** -7)
+    return tol * max(float(ref.float().abs().max()), 1.0)
+
+
+def k6_check(got, ops, twin, train, update_stats, act):
+    """``got`` (``k6_layer``'s list of K6) against the twin on ``ops``:
+    (problem or None, max abs error, the ReLU inputs put on other sides of
+    zero). Every element lies within ``k6_bar`` (a NaN never does). The
+    one cause let past it: a ReLU input that the two statistics put on
+    other sides of zero, which changes that element's gradient by its
+    whole dy and its channel's sums by that element's share. Such an input
+    has to lie within ``K6_FLIP_AT`` of zero on both sides, and the twin's
+    gradients are then taken through K6's mask, to the same bars."""
+    dtype = ops[0].dtype
+    want = k6_layer(twin, ops, train, update_stats, act)
+    flips = {"n": 0}
+    if act == "relu":
+        mask = got[0] > 0
+        flipped = mask != (want[0] > 0)
+        if flipped.any():
+            pre = k6_layer(twin, ops, train, update_stats, act, mask=mask)
+            near = K6_FLIP_AT * max(float(pre[0].float().abs().max()), 1.0)
+            at = torch.maximum(pre[0][flipped].float().abs(),
+                               got[0][flipped].float())
+            worst = int(flipped.flatten().nonzero()[int(at.argmax())])
+            idx = tuple(int(i) for i in np.unravel_index(
+                worst, tuple(got[0].shape)))
+            flips = {"n": int(flipped.sum()), "input_at": float(at.max()),
+                     "where": idx, "x": float(ops[0][idx]),
+                     "twin_input": float(pre[0][idx]),
+                     "y": float(got[0][idx]), "twin_y": float(want[0][idx]),
+                     "dy": float(ops[1][idx]),
+                     "dx_err": float((got[1][idx].float()
+                                      - want[1][idx].float()).abs()),
+                     "dx_err_through_mask": float(
+                         (got[1][idx].float() - pre[1][idx].float()).abs())}
+            if not float(at.max()) <= near:
+                return (f"{flips['n']} ReLU inputs on other sides of zero, "
+                        f"up to {flips['input_at']:.3e} from it (the bar "
+                        f"{near:.3e}): {flips}", math.inf, flips)
+            want[1:4] = pre[1:4]
+    err = 0.0
+    for k, (p, q) in enumerate(zip(got, want)):
+        bar = k6_bar(q, k, dtype)
+        diff = (p.float() - q.float()).abs()
+        off = ~(diff <= bar)
+        if off.any():
+            return (f"tensor {k} of [y, dx, dweight, dbias, running mean, "
+                    f"running var] has {int(off.sum())} of its {q.numel()} "
+                    f"elements beyond {bar:.2e} of the twin's (largest "
+                    f"{float(diff.max()):.3e}; flips {flips})", math.inf,
+                    flips)
+        err = max(err, float(diff.max()))
+    return None, err, flips
+
+
+def phase_batchnorm():
+    """K6 against its plain twin on the card at every BatchNorm of VAE64 and
+    the 28×28 VAE at B = 128 (``K6_LAYERS``), float32 and bfloat16, in
+    channels-last order (the models' layout) and in NCHW order, each
+    activation in train, eval and train without ``update_stats``: the
+    output, the input's, weight's and bias's autograd gradients and the
+    running statistics (``k6_check``); four launches a train call (three
+    in eval with a backward, one an eval forward); a second call bit for
+    bit the first. A ReLU input put on other sides of zero is printed with
+    its operands. Each layer's forward and backward with its own
+    activation timed in channels-last order (CUDA events, the kernels' and
+    the twin's; the kernels' device time by the profiler) against
+    ``k6_bound``. A float16 tensor raises through the layer. Returns
+    {"<model>_<dtype>": totals over the layers}."""
+    from clearvae_torch.models.layers import BatchNorm, batch_norm_plain
+    from clearvae_torch.ops.kernels import batchnorm as K6
+
+    dev = torch.device("cuda")
+    b = 128
+    try:
+        BatchNorm(4).to(dev)(torch.randn(8, 4, device=dev,
+                                         dtype=torch.float16), True)
+        fail("K6: a float16 BatchNorm on the card did not raise")
+    except ValueError:
+        pass
+    out = {}
+    for model, layers in K6_LAYERS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{model}_{str(dtype).split('.')[-1]}"
+            tot = dict(ms=0.0, plain_ms=0.0, device_us=0.0, max_abs_err=0.0,
+                       relu_flips=0)
+            for i, (c, hw, own), cl in ((i, lay, cl) for i, lay in
+                                        enumerate(layers)
+                                        for cl in (True, False)):
+                ops = k6_operands(b, c, hw, dtype, dev, 1000 + i, cl)
+                where = (f"K6 {tag} layer {i} (C={c}, H·W={hw}, "
+                         f"{'channels-last' if cl else 'NCHW'})")
+                for act, (mode, (train, upd)) in ((a, m) for a in K6.ACTS
+                                                  for m in K6_MODES.items()):
+                    K6.reset_launches()
+                    got = k6_layer(K6.batch_norm, ops, train, upd, act)
+                    torch.cuda.synchronize()
+                    launches = dict(K6.LAUNCHES)
+                    again = k6_layer(K6.batch_norm, ops, train, upd, act)
+                    if launches != {"stats": int(train), "apply": 1,
+                                    "grad_reduce": 1, "grad_apply": 1}:
+                        fail(f"{where} {act} {mode}: launches {launches}")
+                    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                        fail(f"{where} {act} {mode}: two calls differ")
+                    problem, err, flips = k6_check(got, ops, batch_norm_plain,
+                                                   train, upd, act)
+                    if problem:
+                        fail(f"{where} {act} {mode}: {problem}")
+                    if flips["n"]:
+                        print(f"[kernels] batchnorm {where} {act} {mode}: "
+                              f"ReLU inputs on other sides of zero {flips}")
+                    tot["relu_flips"] += flips["n"]
+                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                x, _, w, bias, rm, rv = ops
+                K6.reset_launches()
+                with torch.no_grad():
+                    K6.batch_norm(x, w, bias, rm, rv, False, True, own)
+                torch.cuda.synchronize()
+                if dict(K6.LAUNCHES) != {"stats": 0, "apply": 1,
+                                         "grad_reduce": 0, "grad_apply": 0}:
+                    fail(f"{where}: launches {dict(K6.LAUNCHES)} an eval "
+                         f"forward")
+                if not cl:
+                    continue    # timed in the layout the models run
+
+                def kern():
+                    return k6_layer(K6.batch_norm, ops, True, True, own)
+
+                def plain():
+                    return k6_layer(batch_norm_plain, ops, True, True, own)
+
+                p1, t1, t2, p2 = (cuda_ms(plain, iters=50), cuda_ms(kern),
+                                  cuda_ms(kern), cuda_ms(plain, iters=50))
+                dus, n_k = device_us(kern, n=20)
+                if n_k != 4:
+                    fail(f"{where}: {n_k} kernels a train call, not 4")
+                tot["ms"] += min(t1, t2)
+                tot["plain_ms"] += min(p1, p2)
+                tot["device_us"] += dus
+                lb = k6_bound([(c, hw, own)], x.element_size())[0]
+                print(f"[kernels] batchnorm {tag} layer {i} (C={c}, H·W={hw}, "
+                      f"{own}): forward + backward {t1:.4f}/{t2:.4f} ms "
+                      f"(events), device {dus:.2f} us, plain {p1:.4f}/"
+                      f"{p2:.4f} ms, bound {lb:.5f} ms")
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            bms, by = k6_bound(layers, itemsize)
+            tot.update(bound_ms=bms, bound_by=by, layers=len(layers),
+                       design_ms=k6_bound(layers, itemsize, K6_PASSES)[0])
+            out[tag] = tot
+            print(f"[kernels] batchnorm {tag}, {len(layers)} layers a train "
+                  f"step: max abs err {tot['max_abs_err']:.3e} "
+                  f"({tot['relu_flips']} ReLU inputs on other sides of "
+                  f"zero); forward + backward {tot['ms']:.4f} ms (events), "
+                  f"device {tot['device_us']:.2f} us, plain "
+                  f"{tot['plain_ms']:.4f} ms, bound {bms:.5f} ms ({by}, "
+                  f"{K6_MIN_PASSES} passes; K6's design moves {K6_PASSES}: "
+                  f"{tot['design_ms']:.5f} ms)")
+    return out
+
+
 def k3_launches_expected(styles, batches) -> int:
     """K3 calls that styling ``batches`` (index arrays of a dataset) makes:
     one for each batch and severity group, over the whole batch, whether or
@@ -1052,6 +1318,7 @@ def phase_main():
     from clearvae_torch.data.mnist import synthetic_mnist
     from clearvae_torch.data.styled import make_styled_mnist, train_valid_split
     from clearvae_torch.models.vae import VAE
+    from clearvae_torch.ops.kernels import batchnorm as K6
     from clearvae_torch.ops.kernels import fused_loss as FL
     from clearvae_torch.ops.kernels import style as K3
     from clearvae_torch.ops.kernels import threefry as K4
@@ -1088,13 +1355,16 @@ def phase_main():
                                    device="cuda")
     bs = 128
     FL.reset_launches()
+    K6.reset_launches()
     for epoch in range(2):
         trainer.fit(1, train_ds, batch_size=bs, start_epoch=epoch)
     torch.cuda.synchronize()
+    k6_fit = sum(K6.LAUNCHES.values())
     t0 = time.perf_counter()
     mig, mse = trainer.evaluate(valid_ds, batch_size=bs)
     eval_s = time.perf_counter() - t0
     launches = dict(FL.LAUNCHES)
+    k6 = sum(K6.LAUNCHES.values())
     hist = {k: np.concatenate([h[k] for h in trainer.history])
             for k in trainer.history[0]}
     n_steps = len(hist["loss"])
@@ -1118,12 +1388,19 @@ def phase_main():
     k5 = _launches()["glass"]
     if k5:
         fail(f"K5 launched {k5} times on the six styles' path")
+    bns = _bn_layers(trainer.model)
+    if k6_fit != 4 * bns * n_steps or k6 - k6_fit != bns * n_eval_batches:
+        fail(f"K6 launched {k6_fit} times in {n_steps} train steps and "
+             f"{k6 - k6_fit} in {n_eval_batches} eval batches of a model of "
+             f"{bns} BatchNorms (4 a layer a step, 1 a layer a batch)")
     print(f"[main] {n_steps} train steps; loss {hist['loss'][0]:.3f} -> "
           f"{hist['loss'][-1]:.3f}; eval MIG {mig:.4f}, MSE {mse:.3f} "
           f"({eval_s:.2f} s)")
-    print(f"[main] launches: {launches}")
+    print(f"[main] launches: {launches}; K6 {k6_fit} in the fit (4 x {bns} "
+          f"layers x {n_steps} steps), {k6 - k6_fit} in evaluate")
     return ({**launches, "style_batch": k3_materialize,
-             "threefry": k4_materialize, "glass": k5}, (train_ds, valid_ds))
+             "threefry": k4_materialize, "glass": k5, "batchnorm": k6},
+            (train_ds, valid_ds))
 
 
 def _adversarial_step_check(dev, b: int = 128):
@@ -1230,9 +1507,9 @@ def phase_adversarial(gpu, train_ds, valid_ds):
                  f"{launches['snn_bwd']} times in {n_steps} fused train steps")
         if launches["clear_latent_fwdgrad"] or launches["clear_latent_bwd"] \
                 or launches["style_batch"] or launches["threefry"] \
-                or launches["glass"]:
-            fail(f"{name}: K1, K3, K4 or K5 launched on the adversarial path: "
-                 f"{launches}")
+                or launches["glass"] or not launches["batchnorm"]:
+            fail(f"{name}: K1, K3, K4 or K5 launched on the adversarial path, "
+                 f"or K6 not: {launches}")
         print(f"[adversarial] {name}: {n_steps} train steps in {fit_s:.2f} s; "
               f"loss {hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f}; "
               f"eval MIG {mig:.4f}, MSE {mse:.3f} ({eval_s:.2f} s); "
@@ -1404,7 +1681,8 @@ def phase_graph(train_ds, valid_ds, here):
                     {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
                      "snn_fwd": n_g, "snn_bwd": n_g})
             want["style_batch"] = want["threefry"] = want["glass"] = 0
-            if lg != want or le != want:
+            if lg != le or {k: lg[k] for k in want} != want \
+                    or not lg["batchnorm"]:
                 fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
                      f"expected {want}")
             for k in total:
@@ -1459,9 +1737,10 @@ def phase_graph(train_ds, valid_ds, here):
         want["style_batch"] = n_g if styled else 0   # one severity group
         want["threefry"] = 0   # the six styles' draws were made in phase 3
         want["glass"] = 0      # and none of them is glass_blur
-        if lg != le or {k: lg[k] for k in want} != want:
+        if lg != le or {k: lg[k] for k in want} != want \
+                or not lg["batchnorm"]:
             fail(f"{name}: launches eager {le}, graphed (replays) {lg}; "
-                 f"expected {want}")
+                 f"expected {want} and K6")
         for k in total:
             total[k] += lg[k]
         print(f"[graph] {name}: {n_g} graphed updates == {n_e} eager; "
@@ -1821,7 +2100,11 @@ def phase_downstream(gpu, here):
           f"{mig_s['torch'][1]:.3f}/{mig_s['torch'][2]:.3f} s")
     print(f"[downstream] launches: style_batch {launches} (expected {want}); "
           f"{other}")
-    return {**other, "style_batch": launches, "threefry": k4, "glass": k5}
+    k6 = _launches()["batchnorm"]
+    if not k6:
+        fail("K6 launched no time on the downstream path")
+    return {**other, "style_batch": launches, "threefry": k4, "glass": k5,
+            "batchnorm": k6}
 
 
 def _run_mig_sweep(out_dir):
@@ -2065,7 +2348,8 @@ def phase_sixty_four(gpu, here):
         fail(f"VAE64 CLEAR: {eager.train_step.step} eager and {n} graphed "
              f"updates")
     want = {"clear_latent_fwdgrad": n, "clear_latent_bwd": n, "snn_fwd": 0,
-            "snn_bwd": 0, "style_batch": 0, "threefry": 0, "glass": 0}
+            "snn_bwd": 0, "style_batch": 0, "threefry": 0, "glass": 0,
+            "batchnorm": 4 * _bn_layers(graphed.model) * n}
     if lg != want or le != want:
         fail(f"VAE64 CLEAR: launches eager {le}, graphed (replays) {lg}; "
              f"expected {want}")
@@ -2102,8 +2386,10 @@ def phase_sixty_four(gpu, here):
                         {**SIXTY_FOUR, "la": 1, "factor_cls_lr": 1e-4},
                         train, 1)
     n = tc.train_step.step
+    # K6: the VAE's train step, then its no-grad train-mode forward
     want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0, "snn_fwd": n,
-            "snn_bwd": n, "style_batch": 0, "threefry": 0, "glass": 0}
+            "snn_bwd": n, "style_batch": 0, "threefry": 0, "glass": 0,
+            "batchnorm": 6 * _bn_layers(tc.model) * n}
     if lt != want or not all(np.isfinite(v).all() for h in tc.history
                              for v in h.values()):
         fail(f"VAE64 CLEAR-TC: launches {lt}, expected {want}; or a "
@@ -2140,16 +2426,22 @@ def phase_sixty_four(gpu, here):
 
     # 4. perf mode: bf16 conv stacks + fused heads
     t0 = time.perf_counter()
-    FL.reset_launches()
+    _zero_launches()
     perf = get_clearvae_trainer(**kw, vae_kwargs=dict(PERF_VAE_KWARGS))
     perf.fit(2, train, batch_size=128)
+    torch.cuda.synchronize()
+    k6_fit = _launches()["batchnorm"]
     pmig, pmse = perf.evaluate(valid, batch_size=128)
     torch.cuda.synchronize()
-    lp = dict(FL.LAUNCHES)
+    lp = _launches()
+    bns = _bn_layers(perf.model)
     if not (math.isfinite(pmig) and math.isfinite(pmse)) or \
-            lp["clear_latent_fwdgrad"] != perf.train_step.step:
-        fail(f"perf mode: MIG {pmig}, MSE {pmse}, launches {lp}")
-    for k in REPLACES:
+            lp["clear_latent_fwdgrad"] != perf.train_step.step or \
+            k6_fit != 4 * bns * perf.train_step.step or \
+            lp["batchnorm"] - k6_fit != bns * n_eval:
+        fail(f"perf mode: MIG {pmig}, MSE {pmse}, launches {lp}, K6 {k6_fit} "
+             f"in the fit")
+    for k in (*REPLACES, "batchnorm"):
         total[k] += lp[k]
     print(f"[sixty-four] perf mode (bf16, fused heads): fit + evaluate "
           f"{time.perf_counter() - t0:.2f} s, MIG {pmig:.4f}, MSE "
@@ -2165,8 +2457,8 @@ def phase_sixty_four(gpu, here):
             names = zoo + (["lam-cnn"] if name.startswith("camelyon") else [])
         out = os.path.join(out_root, name)
         secs, launches = _run_runner64(name, args, out)
-        if any(launches.values()):
-            fail(f"{name}: the unfused zoo launched {launches}")
+        if not launches.pop("batchnorm") or any(launches.values()):
+            fail(f"{name}: the unfused zoo launched {launches}, or no K6")
         summary = _check_result64(name, os.path.join(out, fname), names)
         print(f"[sixty-four] {name} {' '.join(args)}: {secs:.2f} s, "
               f"{len(names)} entries; {summary}; {gpu}")
@@ -2488,7 +2780,7 @@ def phase_corruptions(gpu):
             "snn_fwd": 0, "snn_bwd": 0,
             "style_batch": k3_launches_expected(styles, [range(128)] * steps),
             "threefry": K4_DRAWS_PASSES + K4_BATCH_PASSES * steps,
-            "glass": steps}
+            "glass": steps, "batchnorm": 4 * _bn_layers(trainer.model) * steps}
     if steps != n_batches or launches != want or want["style_batch"] != 2 * steps:
         fail(f"MNIST-C styled fit: {steps} updates ({n_batches} batches), "
              f"launches by replay {launches}, expected {want} (K3 twice a "
@@ -2856,7 +3148,7 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
                     "clear_latent_bwd": n * fused, "snn_fwd": 0,
                     "snn_bwd": 0,
                     "style_batch": n * bool(fit_kw), "threefry": 0,
-                    "glass": 0,
+                    "glass": 0, "batchnorm": 0,
                     "all_reduce": n * _collectives_per_step(False, tp)}
             if n != ADV_STEPS // 2 or le != want or lg != {
                     **want, "all_reduce": want["all_reduce"] + 1}:
@@ -2904,7 +3196,7 @@ def _phase_parallel_one_rank(gpu, train_ds, valid_ds, total):
         n = tc.train_step.step
         want = {"clear_latent_fwdgrad": 0, "clear_latent_bwd": 0,
                 "snn_fwd": n, "snn_bwd": n, "style_batch": 0, "threefry": 0,
-                "glass": 0,
+                "glass": 0, "batchnorm": 0,
                 "all_reduce": 1 + n * _collectives_per_step(True, tp)}
         if lt != want:
             fail(f"{mesh_name} clear-tc fused: launches by replay {lt}, "
@@ -2984,7 +3276,7 @@ def _phase_parallel_other_models(train_ds):
         want = {"clear_latent_fwdgrad": steps * vae,
                 "clear_latent_bwd": steps * vae, "snn_fwd": 0, "snn_bwd": 0,
                 "style_batch": steps * bool(fit_kw), "threefry": 0,
-                "glass": 0,
+                "glass": 0, "batchnorm": 0,
                 "all_reduce": steps * _bn_collectives(
                     graphed, passes, gathers, mesh_name != "make_mesh(1)")}
         # the graphed fit adds the warm-up's one collective
@@ -3031,6 +3323,7 @@ def _phase_parallel_perf28(train_ds):
         got, n = _launches(), trainer.train_step.step
         want = {k: 0 for k in COUNTED}
         want["clear_latent_fwdgrad"] = want["clear_latent_bwd"] = n
+        want["batchnorm"] = 4 * _bn_layers(trainer.model) * n
         ep = trainer._graphs[(id(train_ds), batch, False)][1]
         if (n != 2 * (len(train_ds) // batch) or got != want
                 or ep.graph is None or trainer.model.fused_heads != fused_heads
@@ -3182,6 +3475,7 @@ def main():
     k3_err, k3_times = phase_style_kernel()
     k4_alone, k4_batch = phase_threefry()
     k5 = phase_glass()
+    k6 = phase_batchnorm()
     launches, (train_ds, valid_ds) = phase_main()
     adv = phase_adversarial(gpu, train_ds, valid_ds)
     graph = phase_graph(train_ds, valid_ds, here)
@@ -3205,7 +3499,7 @@ def main():
     own = {"clear_latent_fwdgrad": "main", "clear_latent_bwd": "main",
            "snn_fwd": "adversarial", "snn_bwd": "adversarial",
            "style_batch": "downstream", "threefry": "corruptions",
-           "glass": "corruptions"}
+           "glass": "corruptions", "batchnorm": "sixty-four"}
     for name, path in own.items():
         if by_path[name][path] == 0:
             fail(f"{name} was launched no time on the {path} path")
@@ -3222,6 +3516,11 @@ def main():
                  "style_batch"):
         if by_path[name]["corruptions"] == 0:
             fail(f"{name} was launched no time on the corruptions path")
+    # K6 on every path without a mesh, and under a mesh never (its
+    # BatchNorms take the twin, whose statistics are all-reduced)
+    for path, n in by_path["batchnorm"].items():
+        if (n == 0) != path.startswith("parallel"):
+            fail(f"batchnorm was launched {n} times on the {path} path")
     # this slice's path, the meshes' graphed fits and evaluations, runs
     # every kernel
     for name in (*REPLACES, "style_batch"):
@@ -3255,6 +3554,16 @@ def main():
                         bound_by="the serial chain of swaps",
                         device_us=k5[1]["device_us"], library_ms=None,
                         launches_by_path=by_path["glass"]))
+    perf = k6["vae64_bfloat16"]
+    kernels.append(dict(name="batchnorm", route="cuda", source=K6_SOURCE,
+                        replaces=None,
+                        launches=by_path["batchnorm"]["sixty-four"],
+                        max_abs_err=max(t["max_abs_err"] for t in k6.values()),
+                        ms=perf["ms"], plain_ms=perf["plain_ms"],
+                        bound_ms=perf["bound_ms"], bound_by=perf["bound_by"],
+                        design_bound_ms=perf["design_ms"],
+                        device_us=perf["device_us"], library_ms=None,
+                        launches_by_path=by_path["batchnorm"]))
     print(f"[chip_smoke] whole run {time.perf_counter() - t_start:.2f} s "
           f"(phases 1-11, the build included)")
     print(gpu)
@@ -3268,7 +3577,8 @@ def main():
                           par["other"]["all_reduce"],
                       "perf28_k1": par["perf28_k1"],
                       "threefry_mnistc_batch": k4_batch,
-                      "glass_by_severity": k5}))
+                      "glass_by_severity": k5,
+                      "batchnorm_by_model": k6}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

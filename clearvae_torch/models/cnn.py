@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from clearvae_torch.models.layers import BatchNorm, ConvBNReluStack, linear
 
@@ -49,7 +48,7 @@ class SimpleCNN(nn.Module):
     def head(self, h: torch.Tensor, train: bool = True) -> torch.Tensor:
         if self.linear_head:
             return self.cls_head(h)
-        return self.out(F.relu(self.hidden_bn(self.hidden(h), train)))
+        return self.out(self.hidden_bn(self.hidden(h), train, act="relu"))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         return self.head(self.features(x, train), train)

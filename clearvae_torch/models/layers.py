@@ -26,8 +26,10 @@ public boundary, which stays NHWC as in the JAX package.
 - Every cast a model makes goes through ``cast``, which counts those that
   convert in the tracer's counter ``model.casts`` (``CASTS``: ``calls``,
   ``bytes``), and the cast of the gradient back where the backward runs
-  it. A capture's count moves to its replays, as the kernels' launch
-  counts do (``ops/kernels/counts.py``). A float32 model counts nothing.
+  it; on a CUDA tensor ``BatchNorm``'s own casts are folded into K6's
+  kernels, run no copy and are not counted. A capture's count moves to
+  its replays, as the kernels' launch counts do
+  (``ops/kernels/counts.py``). A float32 model counts nothing.
 - Under a data mesh (``parallel/mesh.py``) a ``BatchNorm``'s ``group`` is
   the data group, and its train-mode statistics cover the global batch.
 """
@@ -40,6 +42,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from clearvae_torch.ops.kernels import batchnorm as K6
 from clearvae_torch.utils.logging import counter
 
 # the compute dtypes that a configuration names (``VAE(dtype="bfloat16")``)
@@ -130,17 +133,64 @@ def linear(fin: int, fout: int) -> nn.Linear:
     return lin
 
 
+# the activation a BatchNorm applies to its output (``BatchNorm``'s ``act``)
+ACTIVATIONS = {"none": lambda t: t, "relu": F.relu, "sigmoid": torch.sigmoid}
+
+
+def _global_stats(x: torch.Tensor, dims, group):
+    from clearvae_torch.parallel.mesh import all_reduce_sum
+
+    c = x.shape[1]
+    rows = x.new_full((1,), x.numel() // c)
+    sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), rows]),
+                          group)
+    mean = sums[:c] / sums[2 * c]
+    return mean, (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
+
+
+def batch_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, running_mean: torch.Tensor,
+                     running_var: torch.Tensor, train: bool,
+                     update_stats: bool = True, act: str = "none",
+                     momentum: float = 0.1, eps: float = 1e-5,
+                     group=None) -> torch.Tensor:
+    """``BatchNorm``'s layer as torch ops, its casts through ``cast``: the
+    CPU's path, a mesh's, and K6's plain twin on a card."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    dtype, x = x.dtype, cast(x, torch.float32)
+    if train:
+        dims = (0,) + tuple(range(2, x.ndim))
+        if group is None:
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        else:
+            mean, var = _global_stats(x, dims, group)
+    if train and update_stats:
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(momentum * mean)
+            running_var.mul_(1 - momentum).add_(momentum * var)
+    elif not train:
+        mean, var = running_mean, running_var
+    mul = weight * torch.rsqrt(var + eps)
+    return ACTIVATIONS[act](cast((x - mean.view(shape)) * mul.view(shape)
+                                 + bias.view(shape), dtype))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of [N, C] or [N, C, H, W] with flax's running
-    statistics (momentum 0.1, eps 1e-5, biased variance). The statistics
-    and the normalization are computed in float32 and the result is cast
-    to the input's dtype.
+    statistics (momentum 0.1, eps 1e-5, biased variance), and the
+    activation after it (``act``: "none", "relu", "sigmoid"). The
+    statistics and the normalization are computed in float32 and the
+    result is cast to the input's dtype before the activation.
 
-    With a process ``group`` (the data group of a mesh) the train-mode
-    statistics are the global batch's: the per-channel Σx and Σx² and the
-    row count, one float32 buffer, are all-reduced over the group
-    (differentiably: the backward all-reduces their gradients), and the
-    mean and ``E[x²] − E[x]²`` taken from the sums."""
+    On a CUDA tensor off a mesh the layer is K6 (``ops/kernels/
+    batchnorm.py``), whose kernels fold the casts and which raises on what
+    they do not take; on the CPU, and with a process ``group`` (the data
+    group of a mesh), it is ``batch_norm_plain``. Under a group the
+    train-mode statistics are the global batch's: the per-channel Σx and
+    Σx² and the row count, one float32 buffer, are all-reduced over the
+    group (differentiably: the backward all-reduces their gradients), and
+    the mean and ``E[x²] − E[x]²`` taken from the sums."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -152,37 +202,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool,
-                update_stats: bool = True) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        dtype, x = x.dtype, cast(x, torch.float32)
-        if train:
-            dims = (0,) + tuple(range(2, x.ndim))
-            if self.group is None:
-                mean = x.mean(dims)
-                var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
-            else:
-                mean, var = self._global_stats(x, dims)
-        if train and update_stats:
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * var)
-        elif not train:
-            mean, var = self.running_mean, self.running_var
-        mul = self.weight * torch.rsqrt(var + self.eps)
-        return cast((x - mean.view(shape)) * mul.view(shape)
-                    + self.bias.view(shape), dtype)
-
-    def _global_stats(self, x: torch.Tensor, dims):
-        from clearvae_torch.parallel.mesh import all_reduce_sum
-
-        c = x.shape[1]
-        rows = x.new_full((1,), x.numel() // c)
-        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), rows]),
-                              self.group)
-        mean = sums[:c] / sums[2 * c]
-        return mean, (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
+                update_stats: bool = True, act: str = "none") -> torch.Tensor:
+        args = (self.weight, self.bias, self.running_mean, self.running_var,
+                train, update_stats, act, self.momentum, self.eps)
+        if x.is_cuda and self.group is None:
+            return K6.batch_norm(K6.dense(x), *args)
+        return batch_norm_plain(x, *args, group=self.group)
 
 
 class ConvBNReluStack(nn.Module):
@@ -202,5 +227,6 @@ class ConvBNReluStack(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 update_stats: bool = True) -> torch.Tensor:
         for conv, bn in zip(self.convs, self.bns):
-            x = F.relu(bn(cast_conv(conv, x, self.dtype), train, update_stats))
+            x = bn(cast_conv(conv, x, self.dtype), train, update_stats,
+                   act="relu")
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

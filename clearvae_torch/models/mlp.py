@@ -10,7 +10,6 @@ biased running variance, eps 1e-5).
 from __future__ import annotations
 
 from torch import nn
-from torch.nn import functional as F
 
 from clearvae_torch.models.layers import BatchNorm, linear
 
@@ -23,4 +22,4 @@ class ProbeMLP(nn.Module):
         self.dense_1 = linear(hidden, n_class)
 
     def forward(self, z, train: bool = True):
-        return self.dense_1(F.relu(self.bn(self.dense_0(z), train)))
+        return self.dense_1(self.bn(self.dense_0(z), train, act="relu"))

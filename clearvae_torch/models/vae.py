@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from clearvae_torch.models.layers import (BatchNorm, ConvBNReluStack, cast,
                                           cast_conv_transpose, cast_linear,
@@ -56,12 +55,13 @@ class _Decoder(nn.Module):
             + [BatchNorm(co) for co in channels[1:]])
 
     def forward(self, z: torch.Tensor, train: bool) -> torch.Tensor:
-        h = F.relu(self.bns[0](cast_linear(self.dense, z, self.dtype), train))
+        h = self.bns[0](cast_linear(self.dense, z, self.dtype), train,
+                        act="relu")
         x = h.view(-1, self.spatial, self.spatial, self.c0).permute(0, 3, 1, 2)
         last = len(self.convts) - 1
         for i, (convt, bn) in enumerate(zip(self.convts, self.bns[1:])):
-            x = bn(cast_conv_transpose(convt, x, self.dtype), train)
-            x = torch.sigmoid(x) if i == last else F.relu(x)
+            x = bn(cast_conv_transpose(convt, x, self.dtype), train,
+                   act="sigmoid" if i == last else "relu")
         return cast(x.permute(0, 2, 3, 1), torch.float32)
 
 

@@ -6,6 +6,7 @@ import importlib.util
 import os
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -141,3 +142,80 @@ def test_k4_bound(one_pass, nbytes, ops, by):
     assert got_by == by
     assert ms == pytest.approx(max(nbytes / HBM, ops / INT32) * 1e3,
                                rel=1e-12)
+
+
+# a train step's BatchNorms at B = 128: the bound's 5 element passes each
+# (x read and y written by the forward, dy and x read and dx written by the
+# backward) and K6's design's 8 (x read by stats, apply, grad_reduce,
+# grad_apply; y written; dy read twice; dx written): VAE64's 17,825,792
+# elements (4,194,304 + 2,097,152 + 1,048,576 + 524,288 + 262,144 in the
+# encoder; 262,144 + 524,288 + 1,048,576 + 2,097,152 + 4,194,304 +
+# 1,572,864 in the decoder), VAE28's 3,033,088 (802,816 + 401,408 +
+# 262,144; 262,144 + 401,408 + 802,816 + 100,352)
+@pytest.mark.parametrize("model, itemsize, passes, nbytes", [
+    ("vae64", 2, None, 5 * 17825792 * 2), ("vae64", 4, None, 5 * 17825792 * 4),
+    ("vae28", 4, None, 5 * 3033088 * 4), ("vae64", 2, 8, 8 * 17825792 * 2),
+])
+def test_k6_bound(model, itemsize, passes, nbytes):
+    args = () if passes is None else (passes,)
+    ms, by = CS.k6_bound(CS.K6_LAYERS[model], itemsize, *args)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / HBM * 1e3, rel=1e-12)
+
+
+def _planted(case):
+    """(got, ops, act) for ``k6_check`` on the CPU, the twin standing in for
+    K6 with one fault or flip planted: a layer of 16 × 3 × 2 × 2, whose
+    element (5, 1, 0, 1) has its ReLU input moved to zero by the bias."""
+    from clearvae_torch.models.layers import batch_norm_plain as twin
+
+    dtype = torch.bfloat16 if case == "bf16_equal" else torch.float32
+    ops = CS.k6_operands(16, 3, 4, dtype, "cpu", 7)
+    act = "none" if case == "nan_no_act" else "relu"
+    idx = (5, 1, 0, 1)
+    pre = CS.k6_layer(twin, ops, True, True, "none")[0]
+    ops[3][1] -= pre[idx]      # that input is now within rounding of zero
+    got = CS.k6_layer(twin, ops, True, True, act)
+    if case in ("flip_near_zero", "flip_far_from_zero", "flip_wrong_dx"):
+        pre = CS.k6_layer(twin, ops, True, True, "none")[0]
+        at = idx if case != "flip_far_from_zero" else tuple(
+            int(i) for i in np.unravel_index(int(pre.abs().argmax()),
+                                             pre.shape))
+        mask = pre > 0
+        mask[at] = ~mask[at]
+        flipped = CS.k6_layer(twin, ops, True, True, "relu", mask=mask)
+        got[0] = torch.where(mask, pre.clamp_min(1e-9), 0.0)
+        if case != "flip_wrong_dx":
+            got[1:4] = flipped[1:4]
+    elif case == "tail_row":
+        got[1][-1] += 0.05
+    elif case in ("nan", "nan_no_act"):
+        got[1][3, 2, 1, 0] = float("nan")
+    elif case == "running_var":
+        got[5][2] += 1e-3
+    return got, ops, act
+
+
+@pytest.mark.parametrize("case, problem", [
+    ("equal", None), ("bf16_equal", None), ("flip_near_zero", None),
+    ("flip_far_from_zero", "other sides of zero"),
+    ("flip_wrong_dx", "tensor 1"), ("tail_row", "tensor 1"),
+    ("nan", "tensor 1"), ("nan_no_act", "tensor 1"),
+    ("running_var", "tensor 5"),
+])
+def test_k6_check_lets_past_only_a_relu_input_at_zero(case, problem):
+    """``k6_check`` against the twin (CPU): the twin itself agrees at 0.0;
+    a ReLU input at zero on K6's other side passes when K6's gradients
+    are the twin's through K6's mask, and fails when they are not or when
+    the input lies far from zero; a spoiled row, a NaN and a running
+    variance off by 1e-3 fail."""
+    from clearvae_torch.models.layers import batch_norm_plain as twin
+
+    got, ops, act = _planted(case)
+    found, err, flips = CS.k6_check(got, ops, twin, True, True, act)
+    if problem is None:
+        # the flipped input's y: 0 on one side, at most 1e-9 on the other
+        assert found is None and err <= 1e-9, (found, err)
+        assert flips["n"] == (case == "flip_near_zero")
+    else:
+        assert found is not None and problem in found, found
